@@ -9,27 +9,45 @@ first error:
 
 1. Prints the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions, and the time to build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` (nvcc, at first use).
-2. Kernel checks: each of the four kernels against its plain PyTorch
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
+2. Kernel checks: each of the seven kernels against its plain PyTorch
    version on the card, on edge cases (empty inputs, ragged tails,
    duplicates, right=True/False, int32/float32, sentinel-padded
-   boundaries, gaps with a non-zero fill, out-of-range ids). Integer
-   outputs and rle_decode must be equal; segment_sum must be within
-   rtol=1e-4 of a float64 host sum and bit-identical across two launches.
-3. Query phase: TPC-H-shaped LINEITEM (each query sorted by its Table 7
-   order) and ORDERS at the chosen scale, seed 2, ingested with
-   ``CompressionConfig(plain_threshold=1_000)`` onto the card; Q1, Q3, Q6,
-   Q17 and Q19 run through ``repro_torch`` ``Query``. Every answer is
+   boundaries, gaps with a non-zero fill, out-of-range ids; for the packed
+   kernels every bit width of {1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32},
+   values straddling lanes, N = 0 and 1, negative offsets, width-32 wrap,
+   boundaries above the shared-memory route, a partially covered RLE with
+   ``n < cap``). Integer outputs and the decoders must be equal;
+   segment_sum must be within rtol=1e-4 of a float64 host sum and
+   bit-identical across two launches.
+3. Resident query phase: TPC-H-shaped LINEITEM (each query sorted by its
+   Table 7 order) and ORDERS at the chosen scale, seed 2, ingested with
+   ``CompressionConfig(plain_threshold=1_000)`` onto the card; Q1, Q3,
+   Q6, Q17 and Q19 run through ``repro_torch`` ``Query``. Every answer is
    checked against a numpy oracle (integers exact, float sums rtol=1e-4)
-   and every query runs twice with bit-identical results. Kernel launch
-   counts are zeroed just before this phase and read just after it; the
-   run fails if any of the four kernels was not launched.
-4. Kernel timing at the largest inputs the query phase gave each kernel:
+   and every re-run is bit-identical. Launch counts are zeroed just
+   before this phase and read just after it; the run fails if any of the
+   four resident-path kernels was not launched.
+4. Out-of-core phase: the same LINEITEM arrays of Q1, Q6, Q17 and Q3 and
+   the same ORDERS, ingested as ``PartitionedTable.from_arrays(...,
+   partition_rows=1 << 23, pack=True, budget_bytes=1 << 30)`` (host
+   partitions, pinned, bit-packed) and streamed through
+   ``PartitionedQuery.run()``. Each answer must match its oracle and the
+   resident answer, be bit-identical at prefetch depth 0, 1 and 2, and
+   match the same query over ``pack=False`` partitions; Q6 also runs
+   under a seeded fault plan (3 transient transfers, 1 OOM) that must fire
+   in full and recover bit-identically. Per query it prints partitions
+   visited and pruned, bytes moved packed and unpacked, the stage ms, warm
+   wall ms at depth 0 and 2, and the H2D bound (bytes over the pinned
+   bandwidth measured here with one 1 GiB copy). Launch counts are zeroed
+   just before the phase and read just after; the run fails if any of the
+   three packed kernels was not launched.
+5. Kernel timing at the largest inputs the main path gave each kernel:
    kernel, plain-version and (where one PyTorch call computes the same
    function) library times by CUDA events, median of 10 after warm-up,
    beside the least time the card could take (bytes over 3.35 TB/s, or
    operations over 67 TFLOP/s, whichever is larger).
-5. A ``{"kernels": [...]}`` summary line, then as the last line
+6. A ``{"kernels": [...]}`` summary line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 The script imports neither JAX nor the JAX package; the TPC-H generators
@@ -62,7 +80,19 @@ KERNEL_INFO = {
                           "src/repro/kernels/rle_decode.py:40"),
     "segment_sum_kernel": ("src/repro_torch/kernels/csrc/segment_reduce.cu",
                            "src/repro/kernels/segment_reduce.py:43"),
+    "unpack_kernel": ("src/repro_torch/kernels/csrc/unpack.cu",
+                      "src/repro/kernels/unpack.py:88"),
+    "bucketize_packed_kernel": ("src/repro_torch/kernels/csrc/unpack.cu",
+                                "src/repro/kernels/unpack.py:122"),
+    "rle_decode_packed_kernel": ("src/repro_torch/kernels/csrc/unpack.cu",
+                                 "src/repro/kernels/unpack.py:169"),
 }
+RESIDENT_KERNELS = ("bucketize_kernel", "bucketize_count_kernel",
+                    "rle_decode_kernel", "segment_sum_kernel")
+PACKED_KERNELS = ("unpack_kernel", "bucketize_packed_kernel",
+                  "rle_decode_packed_kernel")
+PACK_BITS = (1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32)
+OOC_QUERIES = ("Q1", "Q6", "Q17", "Q3")  # the out-of-core phase's queries
 
 # ---------------------------------------------------------------------------
 # TPC-H-shaped data (copies of benchmarks/bench_tpch.py's generators)
@@ -113,9 +143,14 @@ def make_orders(rng, n_orders):
 # ---------------------------------------------------------------------------
 
 
-def build_query(name, table, orders_table=None, part_keys=None):
+def build_query(name, table, orders_table=None, part_keys=None,
+                query_cls=None):
+    """The query ``name`` staged on ``table`` with ``query_cls`` (``Query``
+    by default; ``PartitionedQuery`` for a partitioned table)."""
     from repro_torch.core import arithmetic
     from repro_torch.core.plan import Query, col
+
+    Query = query_cls or Query  # noqa: N806
 
     def rev(env):
         return arithmetic.binary_op(env["price"], env["discount"], "mul")
@@ -215,6 +250,24 @@ def host_result(res):
     return {"num_groups": ng,
             "keys": {k: to_numpy(v)[:ng] for k, v in res.keys.items()},
             "aggs": {k: to_numpy(v)[:ng] for k, v in res.aggs.items()}}
+
+
+def check_same(name, got, want):
+    """Two host results of one query (e.g. streamed and resident): group
+    keys, integers and counts equal, float sums within rtol 1e-4."""
+    if "keys" in want:
+        if got["num_groups"] != want["num_groups"]:
+            raise AssertionError(f"{name}: group counts differ")
+        check_answer(name, got, {"keys": want["keys"], "aggs": {
+            k: v if np.issubdtype(v.dtype, np.integer) else v.astype(np.float64)
+            for k, v in want["aggs"].items()}})
+        return
+    for k, v in want.items():
+        g = np.asarray(got[k])
+        if np.issubdtype(g.dtype, np.integer) and int(g) != int(v):
+            raise AssertionError(f"{name}: {k}={int(g)} != {int(v)}")
+        np.testing.assert_allclose(float(g), float(v), rtol=1e-4,
+                                   err_msg=f"{name}: {k}")
 
 
 def _bits(tree):
@@ -405,8 +458,106 @@ def kernel_edge_cases(dev):
     return cases
 
 
+def _packed_values(rng, b, n, lo):
+    """``n`` values of a ``b``-bit domain from ``lo`` (the full int32 range
+    at b = 32), their packed lanes as int32 (host), and the offset."""
+    from repro_torch.core import compress
+    if b == 32:
+        lo, hi = -(2**31), 2**31 - 1
+    else:
+        hi = lo + (1 << b) - 1
+    v = rng.integers(lo, hi, n, endpoint=True).astype(np.int64)
+    return v, compress.pack_array(v, lo, b).view(np.int32), lo
+
+
+def packed_edge_cases(dev):
+    """The three packed kernels against their plain versions on the card."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import unpack as ku
+
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cases = 0
+
+    def same(a, b, what):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"kernel check failed: {what}")
+
+    for b in PACK_BITS:
+        # N = 0, N = 1, a few lanes (values straddle lanes for most b), a
+        # ragged tail; negative offsets, and the full range at b = 32
+        for n in (0, 1, 33, 100_003):
+            for lo in (-(1 << min(b, 31) - 1), 12345):
+                v, w, off = _packed_values(rng, b, n, lo)
+                ww = t(w)
+                got = ku.unpack_kernel(ww, b, off, n)
+                same(got, ref.ref_unpack(ww, b, off, n), f"unpack b={b} n={n}")
+                if not np.array_equal(got.cpu().numpy(), v.astype(np.int32)):
+                    raise AssertionError(f"unpack round trip b={b} n={n}")
+                cases += 1
+    for off in (0, 7, -(2**31), 2**31 - 1):  # width-32 wrap-add
+        v = np.array([-(2**31), -1, 0, 1, 2**31 - 1], np.int64)
+        from repro_torch.core import compress
+        ww = t(compress.pack_array(v, off, 32).view(np.int32))
+        got = ku.unpack_kernel(ww, 32, off, 5)
+        if not np.array_equal(got.cpu().numpy(), v.astype(np.int32)):
+            raise AssertionError(f"unpack width-32 wrap, offset {off}")
+        cases += 1
+
+    i32max = np.iinfo(np.int32).max
+    for b, nb, how in ((3, 1, "one boundary"), (9, 32, "sentinel-padded"),
+                       (21, 4096, "shared memory"),
+                       (24, ku.MAX_SMEM_BOUNDARIES + 1000, "beyond shared"),
+                       (32, 1000, "width 32"), (1, 2, "width 1")):
+        for n in (0, 1, 77_777):
+            v, w, off = _packed_values(rng, b, n, -3)
+            lo_b = int(v.min()) - 2 if n else -5
+            hi_b = int(v.max()) + 2 if n else 5
+            bnd = np.sort(rng.integers(lo_b, hi_b, nb, endpoint=True))
+            if how == "sentinel-padded":
+                bnd[-12:] = i32max
+            bb, ww = t(np.clip(bnd, -(2**31), i32max).astype(np.int32)), t(w)
+            for right in (True, False):
+                want = ref.ref_bucketize_packed(bb, ww, b, off, n, right)
+                same(ku.bucketize_packed_kernel(bb, ww, b, off, n, right), want,
+                     f"bucketize_packed {how} n={n} right={right}")
+                if nb <= ku.MAX_SMEM_BOUNDARIES:
+                    same(ku.bucketize_packed_kernel(bb, ww, b, off, n, right,
+                                                    global_route=True),
+                         want, f"bucketize_packed L2 route {how} n={n}")
+                cases += 1
+
+    def runs(nrows, k, cap, gap):
+        starts = np.sort(rng.choice(nrows - gap, k, replace=False))
+        ends = np.minimum(np.concatenate([starts[1:] - 1 - gap,
+                                          [nrows - 1 - gap]]), nrows - 1)
+        ends = np.maximum(ends, starts)
+        pad = cap - k
+        return (np.concatenate([starts, np.full(pad, nrows)]).astype(np.int32),
+                np.concatenate([ends, np.full(pad, nrows)]).astype(np.int32))
+
+    for what, nrows, k, cap, n_valid, gap, b, fill in (
+            ("full cover", 50_000, 300, 300, 300, 0, 11, 0),
+            ("gaps, n < cap, fill", 50_000, 300, 512, 150, 3, 13, -7),
+            ("no valid runs", 5_000, 8, 16, 0, 1, 5, 9),
+            ("one row", 1, 1, 1, 1, 0, 1, 0),
+            ("width 32", 40_000, 64, 64, 64, 2, 32, 3)):
+        starts, ends = runs(nrows, k, cap, gap)
+        v, w, off = _packed_values(rng, b, cap, -50)
+        ww, ss, ee = t(w), t(starts), t(ends)
+        nn = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        same(ku.rle_decode_packed_kernel(ww, b, off, cap, ss, ee, nn, nrows,
+                                         fill),
+             ref.ref_rle_decode_packed(ww, b, off, cap, ss, ee, nn, nrows, fill),
+             f"rle_decode_packed {what}")
+        cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the four kernels at the query phase's largest inputs
+# Phase 4: every kernel at the main path's largest inputs
 # ---------------------------------------------------------------------------
 
 
@@ -416,11 +567,13 @@ def kernel_timing(launches):
     from repro_torch.kernels import bucketize as kb
     from repro_torch.kernels.rle_decode import rle_decode_kernel
     from repro_torch.kernels.segment_reduce import segment_sum_kernel
+    from repro_torch.kernels import unpack as ku
 
     rows = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = _build.LARGEST[name]
-        if name.startswith("bucketize"):
+        lib_what = None
+        if name in ("bucketize_kernel", "bucketize_count_kernel"):
             b, q, right = rec["boundaries"], rec["queries"], rec["right"]
             kern = (kb.bucketize_kernel if name == "bucketize_kernel"
                     else kb.bucketize_count_kernel)
@@ -437,6 +590,7 @@ def kernel_timing(launches):
             p_ms = time_ms(lambda: ref.ref_bucketize(b, q, right))
             lib_ms = time_ms(lambda: torch.searchsorted(b, q, right=right,
                                                         out_int32=True))
+            lib_what = "torch.searchsorted"
         elif name == "rle_decode_kernel":
             v, s, e, n = rec["values"], rec["starts"], rec["ends"], rec["n"]
             nrows, fill = rec["nrows"], rec["fill"]
@@ -451,6 +605,62 @@ def kernel_timing(launches):
             k_ms = time_ms(lambda: rle_decode_kernel(v, s, e, n, nrows, fill))
             p_ms = time_ms(lambda: ref.ref_rle_decode(v, s, e, n, nrows, fill))
             lib_ms = None
+        elif name == "unpack_kernel":
+            w, b, off, n = (rec["words"], rec["bit_width"], rec["offset"],
+                            rec["nvals"])
+            got = ku.unpack_kernel(w, b, off, n)
+            if not torch.equal(got, ref.ref_unpack(w, b, off, n)):
+                raise AssertionError(f"{name} disagrees at the query shape")
+            err = 0.0
+            shape = {"values": n, "bit_width": b, "words": w.shape[0]}
+            nbytes, nops = 4 * w.shape[0] + 4 * n, n
+            k_ms = time_ms(lambda: ku.unpack_kernel(w, b, off, n))
+            p_ms = time_ms(lambda: ref.ref_unpack(w, b, off, n))
+            lib_ms = None
+        elif name == "bucketize_packed_kernel":
+            bnd, w, b, off, n, right = (rec["boundaries"], rec["words"],
+                                        rec["bit_width"], rec["offset"],
+                                        rec["nvals"], rec["right"])
+            got = ku.bucketize_packed_kernel(bnd, w, b, off, n, right)
+            if not torch.equal(got, ref.ref_bucketize_packed(bnd, w, b, off, n,
+                                                             right)):
+                raise AssertionError(f"{name} disagrees at the query shape")
+            err = 0.0
+            nb = bnd.shape[0]
+            shape = {"boundaries": nb, "queries": n, "bit_width": b,
+                     "right": right}
+            nbytes = 4 * (nb + w.shape[0] + n)
+            nops = n * _steps(nb)
+            k_ms = time_ms(lambda: ku.bucketize_packed_kernel(bnd, w, b, off, n,
+                                                              right))
+            p_ms = time_ms(lambda: ref.ref_bucketize_packed(bnd, w, b, off, n,
+                                                            right))
+            # the library yardstick searches the already-unpacked queries
+            q = ref.ref_unpack(w, b, off, n)
+            lib_ms = time_ms(lambda: torch.searchsorted(bnd, q, right=right,
+                                                        out_int32=True))
+            lib_what = "torch.searchsorted on the already-unpacked queries"
+        elif name == "rle_decode_packed_kernel":
+            w, b, off, cap = (rec["words"], rec["bit_width"], rec["offset"],
+                              rec["cap"])
+            st, en, nn, nrows, fill = (rec["starts"], rec["ends"], rec["n"],
+                                       rec["nrows"], rec["fill"])
+
+            def kern():
+                return ku.rle_decode_packed_kernel(w, b, off, cap, st, en, nn,
+                                                   nrows, fill)
+
+            def plain():
+                return ref.ref_rle_decode_packed(w, b, off, cap, st, en, nn,
+                                                 nrows, fill)
+
+            if not torch.equal(kern(), plain()):
+                raise AssertionError(f"{name} disagrees at the query shape")
+            err = 0.0
+            shape = {"capacity": cap, "nrows": nrows, "bit_width": b}
+            nbytes = 4 * w.shape[0] + 8 * cap + 4 + 4 * nrows
+            nops = nrows * _steps(cap)
+            k_ms, p_ms, lib_ms = time_ms(kern), time_ms(plain), None
         else:
             v, ids, g = rec["values"], rec["segment_ids"], rec["num_segments"]
             got = segment_sum_kernel(v, ids, g)
@@ -473,14 +683,16 @@ def kernel_timing(launches):
             if bool(keep.all()):  # one index_add_ computes the same function
                 lib_ms = time_ms(lambda: torch.zeros(g, device=v.device)
                                  .index_add_(0, ids, v))
+                lib_what = "index_add_"
         b_ms, b_by = bound_ms(nbytes, nops)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         print(json.dumps({"kernel": name, "kernel_ms": k_ms, "plain_ms": p_ms,
-                          "library_ms": lib_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "shape": shape,
+                          "library_ms": lib_ms, "library": lib_what,
+                          "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
+                          "launches": launches[name],
                           "max_abs_err": err}), flush=True)
         rows.append(row)
     return rows
@@ -522,6 +734,9 @@ def profile_run(name, q, out_dir):
 
 
 def query_phase(sf, dev, runs, profile_dir=None):
+    """The resident path. Returns its per-query records and what the
+    out-of-core phase reuses: the LINEITEM arrays of ``OOC_QUERIES``, the
+    oracles and resident answers, ORDERS and the semi-join keys."""
     import torch
     from repro_torch.core import compress
     from repro_torch.core.table import Table
@@ -539,6 +754,8 @@ def query_phase(sf, dev, runs, profile_dir=None):
           f"(scale factor {sf}), {len(part_keys)} semi-join part keys",
           flush=True)
     per_query = {}
+    shared = {"orders": orders, "orders_table": orders_table,
+              "part_keys": part_keys, "data": {}, "want": {}, "resident": {}}
     for name in ("Q1", "Q3", "Q6", "Q17", "Q19"):
         t0 = time.perf_counter()
         data = make_lineitem(rng, n, order=SORT_ORDERS[name])
@@ -550,6 +767,9 @@ def query_phase(sf, dev, runs, profile_dir=None):
         ingest_s = time.perf_counter() - t0
         want = oracle(name, data, orders=orders, part_keys=part_keys)
         plain_bytes = sum(v.shape[0] * 4 for v in data.values())
+        if name in OOC_QUERIES:  # generated once, streamed again later
+            shared["data"][name] = data
+            shared["want"][name] = want
         del data
         q = build_query(name, table, orders_table, part_keys)
         before = dict(_build.LAUNCHES)
@@ -569,6 +789,7 @@ def query_phase(sf, dev, runs, profile_dir=None):
         for other in results[1:]:
             if _bits(other) != first:
                 raise AssertionError(f"{name}: re-run is not bit-identical")
+        shared["resident"][name] = results[0]
         rec = {"query": name, "encodings": table.encodings(),
                "device_MiB_encoded": table.nbytes() / 2**20,
                "device_MiB_plain": plain_bytes / 2**20,
@@ -583,6 +804,161 @@ def query_phase(sf, dev, runs, profile_dir=None):
         per_query[name] = rec
         del q, table
         torch.cuda.empty_cache()
+    return per_query, shared
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the out-of-core path (packed partitions streamed from the host)
+# ---------------------------------------------------------------------------
+
+
+def pinned_h2d_gbps(dev, nbytes=1 << 30, iters=5):
+    """Host-to-device rate of one ``nbytes`` copy from pinned memory
+    (median of ``iters`` CUDA-event timings), in GB/s."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = time_ms(lambda: dst.copy_(src, non_blocking=True), iters=iters,
+                 warmup=1)
+    del src, dst
+    torch.cuda.empty_cache()
+    return nbytes / (ms * 1e-3) / 1e9
+
+
+def _timed_run(q):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = host_result(q.run())
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def chaos_plan(seed, visited):
+    """``FaultPlan.seeded``'s schedule (transient transfer faults and one
+    OOM in the program, each at attempt 0 of a distinct partition) drawn
+    over the partitions the query visits: a fault placed on a partition
+    that zone maps prune would never fire. Three transients and one OOM
+    when at least four partitions are visited."""
+    from repro_torch.core.faults import FaultPlan
+    k = min(4, len(visited))
+    chosen = np.random.default_rng(seed).choice(visited, size=k, replace=False)
+    plan = FaultPlan()
+    for p in chosen[:-1]:
+        plan.transient(int(p))
+    return plan.oom(int(chosen[-1]), site="compute")
+
+
+def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None):
+    """Stream ``OOC_QUERIES`` over packed (and, for comparison, unpacked)
+    host partitions; returns the per-query records. With ``profile_dir``,
+    one more depth-2 run of each query goes under ``torch.profiler``."""
+    import torch
+    from repro_torch.core import compress, telemetry
+    from repro_torch.core.partition import PartitionedQuery, PartitionedTable
+    from repro_torch.kernels import _build, dispatch
+
+    cfg = compress.CompressionConfig(plain_threshold=1_000)
+    orders_table, part_keys = shared["orders_table"], shared["part_keys"]
+    per_query = {}
+    for name in OOC_QUERIES:
+        data = shared["data"].pop(name)
+        n = len(data["price"])
+        # 8 partitions: 2**23 rows each at scale factor 10
+        rows = 1 << max(8, (-(-n // 8) - 1).bit_length())
+        tables, rec = {}, {"query": name, "partition_rows": rows}
+        for pack in (True, False):
+            t0 = time.perf_counter()
+            tables[pack] = PartitionedTable.from_arrays(
+                data, cfg=cfg, partition_rows=rows, pack=pack,
+                budget_bytes=1 << 30, device=dev)
+            rec[f"ingest_s_{'packed' if pack else 'unpacked'}"] = \
+                time.perf_counter() - t0
+        del data
+        pt = tables[True]
+        rec["partitions"] = len(pt.partitions)
+        rec["padded_rows"] = sorted({p.padded_rows for p in pt.partitions})
+        rec["host_MiB_packed"] = pt.nbytes() / 2**20
+        rec["host_MiB_unpacked_partitions"] = tables[False].nbytes() / 2**20
+        rec["MiB_unpacked_accounting"] = pt.nbytes_unpacked() / 2**20
+
+        def query(table):
+            return build_query(name, table, orders_table, part_keys,
+                               query_cls=PartitionedQuery)
+
+        results, times = {}, {0: [], 1: [], 2: []}
+        moved = []
+        for depth in (0, 1, 2, 0, 2, 0, 2):
+            before = dict(_build.LAUNCHES)
+            with dispatch.overrides(prefetch_depth=depth), \
+                    telemetry.h2d_listener(lambda nb, tree: moved.append(nb)):
+                q = query(pt)
+                res, ms = _timed_run(q)
+            if depth == 2 and "launches_per_run" not in rec:
+                rec["launches_per_run"] = {
+                    k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}
+            times[depth].append(ms)
+            if depth in results and _bits(res) != _bits(results[depth]):
+                raise AssertionError(f"{name}: depth-{depth} re-run differs")
+            results.setdefault(depth, res)
+            stats = dict(q.last_stats)
+            if depth == 2:
+                rec["stats_depth2"] = {k: stats[k] for k in (
+                    "partitions", "executed", "skipped", "transferred",
+                    "h2d_ms", "compute_ms", "merge_ms", "inflight_bytes_max",
+                    "prefetch_depth")}
+        bytes_moved = sum(moved) // len(times[0] + times[1] + times[2])
+        check_answer(name, results[0], shared["want"][name])
+        for depth in (1, 2):
+            if _bits(results[depth]) != _bits(results[0]):
+                raise AssertionError(f"{name}: depth {depth} is not "
+                                     "bit-identical to depth 0")
+        check_same(name, results[0], shared["resident"][name])
+        moved_unpacked = []
+        with telemetry.h2d_listener(lambda nb, tree: moved_unpacked.append(nb)):
+            unpacked, ms_unpacked = _timed_run(query(tables[False]))
+        check_same(name, results[0], unpacked)
+        rec.update({
+            "visited": stats["executed"], "pruned": stats["skipped"],
+            "bytes_moved_packed": bytes_moved,
+            "bytes_moved_unpacked": sum(moved_unpacked),
+            "pinned_h2d_GBps": h2d_gbps,
+            "h2d_bound_ms_packed": bytes_moved / (h2d_gbps * 1e9) * 1e3,
+            "h2d_bound_ms_unpacked":
+                sum(moved_unpacked) / (h2d_gbps * 1e9) * 1e3,
+            "cold_ms_depth0": times[0][0],
+            "warm_ms_depth0": statistics.median(times[0][1:]),
+            "warm_ms_depth1": times[1][0],
+            "warm_ms_depth2": statistics.median(times[2]),
+            "ms_unpacked_depth2": ms_unpacked,
+            "oracle": "ok", "matches_resident": True,
+            "depths_bit_identical": True, "matches_unpacked": True,
+            "unpacked_bit_identical": _bits(unpacked) == _bits(results[0]),
+        })
+        if profile_dir is not None:
+            with dispatch.overrides(prefetch_depth=2):
+                rec["profile_depth2"] = profile_run(f"streamed_{name}",
+                                                    query(pt), profile_dir)
+        if name == "Q6":
+            plan = chaos_plan(seed, [i for i, ok, _ in q.last_verdicts if ok])
+            with plan:
+                q = query(pt)
+                chaos, ms = _timed_run(q)
+            if len(plan.fired) != len(plan.scheduled()):
+                raise AssertionError(f"chaos: {len(plan.fired)} of "
+                                     f"{len(plan.scheduled())} faults fired")
+            if _bits(chaos) != _bits(results[2]):
+                raise AssertionError("chaos: recovered Q6 differs from the "
+                                     "clean run")
+            rec["chaos"] = {"fired": len(plan.fired), "ms": ms,
+                            "retries": q.last_stats["retries"],
+                            "degradations": q.last_stats["degradations"],
+                            "final_depth": q.last_stats["prefetch_depth"],
+                            "bit_identical": True}
+        print(json.dumps(rec), flush=True)
+        per_query[name] = rec
+        del tables, pt
+        torch.cuda.empty_cache()
     return per_query
 
 
@@ -591,11 +967,14 @@ def main(argv=None) -> int:
     parser.add_argument("--sf", type=float, default=10.0,
                         help="TPC-H scale factor of the query phase")
     parser.add_argument("--runs", type=int, default=4,
-                        help="runs of each query (first cold, rest warm)")
+                        help="runs of each resident query (first cold, rest "
+                        "warm)")
+    parser.add_argument("--seed", type=int, default=7,
+                        help="seed of the out-of-core phase's fault plan")
     parser.add_argument("--profile", type=Path, default=None,
                         help="directory for a torch.profiler table of one "
-                        "more warm run of each query (its launches are "
-                        "not counted in launches_per_run)")
+                        "more warm run of each query, resident and streamed "
+                        "(its launches are not counted in launches_per_run)")
     args = parser.parse_args(argv)
 
     import torch
@@ -621,23 +1000,43 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}", flush=True)
 
-    cases = kernel_edge_cases(dev)
+    cases = kernel_edge_cases(dev) + packed_edge_cases(dev)
     print(f"kernel checks: {cases} edge cases agree with the plain versions",
           flush=True)
 
     _build.capture(True)
     _build.reset_launches()
-    per_query = query_phase(args.sf, dev, args.runs, args.profile)
-    launches = dict(_build.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    per_query, shared = query_phase(args.sf, dev, args.runs, args.profile)
+    resident = dict(_build.LAUNCHES)
+    missing = [k for k in RESIDENT_KERNELS if resident[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the resident path: "
                              f"{missing}")
+    h2d_gbps = pinned_h2d_gbps(dev)
+    print(f"pinned H2D: {h2d_gbps:.2f} GB/s (one 1 GiB copy, median of 5)",
+          flush=True)
+    _build.reset_launches()
+    ooc = outofcore_phase(dev, shared, h2d_gbps, args.seed, args.profile)
+    streamed = dict(_build.LAUNCHES)
+    missing = [k for k in PACKED_KERNELS if streamed[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the out-of-core "
+                             f"path: {missing}")
+    print(json.dumps({"launches": {"resident": resident,
+                                   "out_of_core": streamed}}), flush=True)
+    launches = {k: resident[k] + streamed[k] for k in _build.KERNELS}
     rows = kernel_timing(launches)
     _build.capture(False)
     print(json.dumps({"card": card, "queries": {
         k: {"warm_median_ms": v["warm_median_ms"], "ingest_s": v["ingest_s"]}
-        for k, v in per_query.items()}}), flush=True)
+        for k, v in per_query.items()}, "out_of_core": {
+        k: {"warm_ms_depth0": v["warm_ms_depth0"],
+            "warm_ms_depth2": v["warm_ms_depth2"],
+            "h2d_bound_ms_packed": v["h2d_bound_ms_packed"],
+            "bytes_moved_packed": v["bytes_moved_packed"],
+            "bytes_moved_unpacked": v["bytes_moved_unpacked"]}
+        for k, v in ooc.items()}}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

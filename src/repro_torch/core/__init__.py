@@ -1,7 +1,8 @@
 """Core library of the PyTorch port: SQL analytics on lightweight-compressed
 columnar data, mirroring ``repro.core`` (DESIGN.md §2, §4).
 
-Layers ported in this slice (the resident query path):
+Layers ported so far (the resident query path and the out-of-core
+streamed path):
   encodings   — Plain / RLE / Index / Plain+Index / RLE+Index columns & masks
   primitives  — Table-1 parallel primitives (range_intersect, idx_in_rle, ...)
   logical     — AND / OR / NOT over MaskColumns (Tables 2-5)
@@ -13,21 +14,29 @@ Layers ported in this slice (the resident query path):
   telemetry   — spans, counters, routing records
   convert     — plain host descriptions of encoded tables (carrying state
                 between the two packages)
+  partition   — PartitionedTable / PartitionedQuery: zone-map pruning,
+                streamed partial aggregation (out-of-core, DESIGN.md §4)
+  stream      — the depth-k prefetch pipeline (copy stream + events)
+  faults      — fault taxonomy + deterministic injection (DESIGN.md §15)
 """
 from repro_torch.core import (  # noqa: F401
     arithmetic,
     compress,
     convert,
+    faults,
     groupby,
     join,
     logical,
+    partition,
     plan,
     primitives,
+    stream,
     telemetry,
 )
 from repro_torch.core.encodings import (  # noqa: F401
     IndexColumn,
     IndexMask,
+    PackedColumn,
     PlainColumn,
     PlainIndexColumn,
     PlainMask,
@@ -43,6 +52,16 @@ from repro_torch.core.encodings import (  # noqa: F401
     make_plain_mask,
     make_rle,
     make_rle_mask,
+)
+from repro_torch.core.faults import (  # noqa: F401
+    DeviceOOMError,
+    FaultPlan,
+    TransientTransferError,
+    ValidationError,
+)
+from repro_torch.core.partition import (  # noqa: F401
+    PartitionedQuery,
+    PartitionedTable,
 )
 from repro_torch.core.plan import Query, col  # noqa: F401
 from repro_torch.core.table import Table  # noqa: F401

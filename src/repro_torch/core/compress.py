@@ -11,9 +11,9 @@ contents are the reference's, bit for bit:
   * trimming top/bottom 5% permits a narrower dtype -> Plain+Index
   * else Plain (possibly centered for bit-width reduction)
 
-Left for later port slices: bit packing (``pack=True`` raises
-``NotImplementedError``) and ``validate_encoded`` (it waits for the
-``faults`` port).
+With ``pack=True`` the integer buffers are bit-packed on the host at
+ingest (``pack_array``, DESIGN.md §11); ``validate_encoded`` audits an
+encoded column's invariants (``Table.validate``, DESIGN.md §15).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.encodings import (
     IndexColumn,
@@ -32,7 +33,9 @@ from repro_torch.core.encodings import (
     make_index,
     make_plain,
     make_rle,
+    map_tensors,
 )
+from repro_torch.device import resolve_device, to_numpy
 
 
 @dataclasses.dataclass
@@ -46,7 +49,9 @@ class CompressionConfig:
     # Round run/index capacities up to the next power of two (DESIGN.md §4).
     capacity_bucket: Optional[str] = None  # None | "pow2"
     min_bucket: int = 8  # floor for bucketed capacities
-    # Sub-byte bit packing (DESIGN.md §11): not ported yet.
+    # Sub-byte bit packing (DESIGN.md §11): pack integer buffers at the
+    # exact bit width of their (lo, hi) domain into 32-bit lanes. Gated by
+    # the dispatch policy (enable_pack / pack_max_bits / REPRO_PACK*).
     pack: bool = False
 
 
@@ -197,12 +202,19 @@ def encode(values: np.ndarray, cfg: CompressionConfig = CompressionConfig(),
     be dictionary-encoded first (``Table.from_arrays`` does this); float64
     narrows to float32 as TQP narrows decimals (paper §2.1). ``device``
     None means the CUDA device.
+
+    With ``cfg.pack`` the integer buffers are bit-packed on the host
+    (DESIGN.md §11) before they move to ``device``. ``pack_domain`` is the
+    column's ``(lo, size)`` value domain: partitioned ingest passes the
+    GLOBAL domain so every partition packs at the same bit width.
     """
-    if cfg.pack:
-        raise NotImplementedError(
-            "bit packing (pack=True) is not ported yet: it arrives with the "
-            "out-of-core slice and the unpack kernels (ROADMAP queue B5-B7)")
-    return _encode_unpacked(values, cfg, encoding, device)
+    if not cfg.pack:
+        return _encode_unpacked(values, cfg, encoding, device)
+    # pack on the host, then place the packed buffers on ``device``
+    col = pack_encoded(_encode_unpacked(values, cfg, encoding, "cpu"),
+                       pack_domain=pack_domain)
+    dev = resolve_device(device)
+    return col if dev.type == "cpu" else map_tensors(lambda t: t.to(dev), col)
 
 
 def _long_short_split(values, cfg: CompressionConfig):
@@ -300,22 +312,389 @@ def dictionary_encode(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return codes.astype(np.int32), dictionary
 
 
-def _buf_nbytes(a) -> int:
+# ---------------------------------------------------------------------------
+# Sub-byte bit packing (DESIGN.md §11): host-side pack of integer buffers
+# into 32-bit lanes at the exact bit width of their (lo, hi) domain. The
+# device-side inverse is kernels/unpack.py (CUDA) / ref.ref_unpack (plain),
+# routed lazily at the readers. Packed words are what a partition transfer
+# moves, so H2D bytes shrink by ~bit_width/32 on dict-heavy columns.
+# ---------------------------------------------------------------------------
+
+
+def pack_bit_width(lo: int, hi: int) -> int:
+    """Bits needed for values in [lo, hi] stored as unsigned ``v - lo``."""
+    span = int(hi) - int(lo)
+    if span < 0:
+        return 33  # empty domain: never packs
+    return max(1, span.bit_length())
+
+
+def pack_array(values: np.ndarray, offset: int, bit_width: int) -> np.ndarray:
+    """Pack ``values`` as unsigned ``(v - offset) mod 2**bit_width`` codes,
+    densely concatenated into uint32 lanes (value i occupies bit range
+    [i*b, i*b+b) of the stream). Width 32 is an exact modular passthrough.
+    """
+    v = np.asarray(values).astype(np.int64)
+    n, b = v.size, int(bit_width)
+    nwords = (n * b + 31) // 32
+    if n == 0:
+        return np.zeros(nwords, np.uint32)
+    # 32 consecutive codes fill exactly b lanes, and code k of every group
+    # sits at the same lane and shift: one vectorised OR per k over all
+    # groups (zero codes pad the last group and leave its bits clear)
+    groups = -(-n // 32)
+    codes = np.zeros(groups * 32, np.uint32)
+    codes[:n] = (v - int(offset)) & ((1 << b) - 1)
+    codes = np.ascontiguousarray(codes.reshape(groups, 32).T)
+    lanes = np.zeros((b, groups), np.uint32)
+    for k in range(32):
+        w, s = divmod(k * b, 32)
+        lanes[w] |= codes[k] << np.uint32(s)
+        if s + b > 32:  # straddles: its high bits open lane w + 1
+            lanes[w + 1] |= codes[k] >> np.uint32(32 - s)
+    return lanes.T.ravel()[:nwords]
+
+
+def unpack_array(words: np.ndarray, offset: int, bit_width: int,
+                 n: int) -> np.ndarray:
+    """Host-side inverse of ``pack_array``: int64 logical values (int32
+    wrap-add of ``offset``). ``words`` may be the uint32 lanes or their
+    int32 view."""
+    b = int(bit_width)
+    out_words = np.asarray(words).view(np.uint32).astype(np.uint64)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    bitpos = np.arange(int(n), dtype=np.int64) * b
+    w = bitpos >> 5
+    sh = (bitpos & 31).astype(np.uint64)
+    lo = out_words[w] >> sh
+    # straddling values continue into lane w+1; a lane past the end is
+    # never needed (the last value does not straddle) and reads as 0
+    nxt_ix = np.minimum(w + 1, len(out_words) - 1)
+    nxt = np.where(w + 1 < len(out_words), out_words[nxt_ix], np.uint64(0))
+    code = (lo | (nxt << (np.uint64(32) - sh))) & np.uint64((1 << b) - 1)
+    v = code.astype(np.int64) + int(offset)
+    return (((v + (1 << 31)) % (1 << 32)) - (1 << 31)).astype(np.int64)
+
+
+def _pack_buf(buf, lo: int, hi: int, max_bits: int,
+              logical_offset: int = 0,
+              vs_bits: Optional[int] = None) -> Optional[PackedColumn]:
+    """PackedColumn for a host buffer whose LOGICAL values (buf +
+    ``logical_offset``) lie in [lo, hi], or None when packing does not
+    shrink it (non-integer dtype, empty, or bit width too wide).
+
+    ``vs_bits`` is the width packing competes against: the buffer's
+    stored dtype by default, the logical int32 width (32) when packing
+    against a GLOBAL cross-partition domain, so every partition of a
+    column packs alike (``repro.core.compress._pack_buf``).
+    """
+    if isinstance(buf, PackedColumn):
+        return None  # already packed
+    a = to_numpy(buf)
+    if a.size == 0 or a.dtype.kind not in "iu":
+        return None
+    b = pack_bit_width(lo, hi)
+    if b > max_bits or b >= (a.dtype.itemsize * 8 if vs_bits is None
+                             else vs_bits):
+        return None  # no byte saving over the reference width
+    logical = a.astype(np.int64) + int(logical_offset)
+    words = pack_array(logical, int(lo), b)
+    return PackedColumn(words=torch.from_numpy(words.view(np.int32)),
+                        nrows=int(a.size), bit_width=b, offset=int(lo))
+
+
+def _host_offset(offset) -> int:
+    return int(offset) if isinstance(offset, (int, np.integer)) else 0
+
+
+def _value_domain(buf, offset, pack_domain) -> Optional[Tuple[int, int]]:
+    """(lo, hi) of a value buffer's logical content: the ingest-recorded
+    global domain when given, else derived from the buffer itself."""
+    if pack_domain is not None:
+        lo, size = int(pack_domain[0]), int(pack_domain[1])
+        return (lo, lo + size - 1)
+    a = to_numpy(buf)
+    if a.size == 0 or a.dtype.kind not in "iu":
+        return None
+    off = _host_offset(offset)
+    return (int(a.min()) + off, int(a.max()) + off)
+
+
+def pack_encoded(col, pack_domain: Optional[Tuple[int, int]] = None,
+                 max_bits: Optional[int] = None):
+    """Bit-pack an encoded column's integer buffers (host-side, at ingest).
+
+    * plain values / dictionary codes pack at the value domain's width
+      with the centering offset folded in (``PlainColumn.offset`` -> 0),
+    * RLE/Index VALUE buffers pack at the value domain widened to include
+      0 (capacity padding holds literal zeros, which must round-trip),
+    * RLE starts/ends and Index positions pack at ``bits(nrows)`` — the
+      sentinel ``nrows`` itself stays representable,
+    * float/bool buffers and widths past the policy's ``pack_max_bits``
+      stay raw.
+    """
+    from repro_torch.kernels import dispatch
+    pol = dispatch.policy()
+    if not pol.enable_pack:
+        return col
+    max_bits = pol.pack_max_bits if max_bits is None else max_bits
+
+    def vals_domain(buf, offset=0, pad_zero=False):
+        dom = _value_domain(buf, offset, pack_domain)
+        if dom is None:
+            return None
+        lo, hi = dom
+        if pad_zero:  # capacity-padding slots hold 0
+            lo, hi = min(lo, 0), max(hi, 0)
+        return lo, hi
+
+    # against a GLOBAL domain the pack decision must not see the local
+    # buffer dtype (see _pack_buf): compete with the logical int32 width
+    vvs = 32 if pack_domain is not None else None
+
+    if isinstance(col, PlainColumn):
+        dom = vals_domain(col.values, col.offset)
+        if dom is None:
+            return col
+        p = _pack_buf(col.values, dom[0], dom[1], max_bits,
+                      logical_offset=_host_offset(col.offset), vs_bits=vvs)
+        if p is None:
+            return col
+        return PlainColumn(values=p, nrows=col.nrows, offset=0)
+
+    if isinstance(col, RLEColumn):
+        dom = vals_domain(col.values, pad_zero=True)
+        pv = (_pack_buf(col.values, dom[0], dom[1], max_bits, vs_bits=vvs)
+              if dom else None)
+        ps = _pack_buf(col.starts, 0, col.nrows, max_bits)
+        pe = _pack_buf(col.ends, 0, col.nrows, max_bits)
+        return RLEColumn(values=pv if pv is not None else col.values,
+                         starts=ps if ps is not None else col.starts,
+                         ends=pe if pe is not None else col.ends,
+                         n=col.n, nrows=col.nrows)
+
+    if isinstance(col, IndexColumn):
+        dom = vals_domain(col.values, pad_zero=True)
+        pv = (_pack_buf(col.values, dom[0], dom[1], max_bits, vs_bits=vvs)
+              if dom else None)
+        pp = _pack_buf(col.positions, 0, col.nrows, max_bits)
+        return IndexColumn(values=pv if pv is not None else col.values,
+                           positions=pp if pp is not None else col.positions,
+                           n=col.n, nrows=col.nrows)
+
+    if isinstance(col, PlainIndexColumn):
+        # the base's domain is the INLIER range (per-partition quantiles),
+        # never the column domain: derive it from the buffers
+        return PlainIndexColumn(base=pack_encoded(col.base, None, max_bits),
+                                outliers=pack_encoded(col.outliers, None,
+                                                      max_bits),
+                                nrows=col.nrows)
+
+    if isinstance(col, RLEIndexColumn):
+        return RLEIndexColumn(rle=pack_encoded(col.rle, pack_domain, max_bits),
+                              idx=pack_encoded(col.idx, pack_domain, max_bits),
+                              nrows=col.nrows)
+
+    return col
+
+
+def _buf_nbytes(a, unpacked: bool = False) -> int:
     if isinstance(a, PackedColumn):
+        if unpacked:
+            # what whole-dtype narrowing of the SAME domain would occupy
+            # (the honest unpacked reference, not a flat int32)
+            b = a.bit_width
+            return int(a.nrows) * (1 if b <= 8 else 2 if b <= 16 else 4)
         return int(a.words.numel()) * 4
     return int(a.numel() * a.element_size())
 
 
-def encoded_nbytes(col) -> int:
-    """In-memory footprint of an encoded column (device bytes)."""
+def encoded_nbytes(col, unpacked: bool = False) -> int:
+    """In-memory footprint of an encoded column (device bytes).
+
+    ``unpacked=True`` counts bit-packed buffers at the whole-dtype width
+    the §9 narrowing would have used for the same domain."""
     if isinstance(col, PlainColumn):
-        return _buf_nbytes(col.values)
+        return _buf_nbytes(col.values, unpacked)
     if isinstance(col, RLEColumn):
-        return sum(_buf_nbytes(a) for a in (col.values, col.starts, col.ends))
+        return sum(_buf_nbytes(a, unpacked)
+                   for a in (col.values, col.starts, col.ends))
     if isinstance(col, IndexColumn):
-        return sum(_buf_nbytes(a) for a in (col.values, col.positions))
+        return sum(_buf_nbytes(a, unpacked)
+                   for a in (col.values, col.positions))
     if isinstance(col, PlainIndexColumn):
-        return encoded_nbytes(col.base) + encoded_nbytes(col.outliers)
+        return (encoded_nbytes(col.base, unpacked)
+                + encoded_nbytes(col.outliers, unpacked))
     if isinstance(col, RLEIndexColumn):
-        return encoded_nbytes(col.rle) + encoded_nbytes(col.idx)
+        return (encoded_nbytes(col.rle, unpacked)
+                + encoded_nbytes(col.idx, unpacked))
     raise TypeError(type(col))
+
+
+# ---------------------------------------------------------------------------
+# Integrity validation (DESIGN.md §15, Table.validate)
+# ---------------------------------------------------------------------------
+
+
+def _host_buf(buf) -> np.ndarray:
+    """Logical host copy of one encoded-column buffer slot: packed slots
+    decode through ``unpack_array``, raw slots copy out as they are."""
+    if isinstance(buf, PackedColumn):
+        return unpack_array(to_numpy(buf.words), int(buf.offset),
+                            buf.bit_width, int(buf.nrows))
+    return to_numpy(buf)
+
+
+def _vfail(name: str, msg: str):
+    from repro_torch.core.faults import ValidationError
+
+    raise ValidationError(f"column {name!r}: {msg}")
+
+
+def _check_packed_width(buf, name: str, what: str, lo_req: int,
+                        hi_req: int) -> None:
+    """A packed buffer must be able to represent [lo_req, hi_req] exactly:
+    a too-narrow width silently aliases values modulo 2**b."""
+    if not isinstance(buf, PackedColumn) or buf.bit_width >= 32:
+        return  # width 32 is an exact modular passthrough
+    lo = int(buf.offset)
+    hi = lo + (1 << buf.bit_width) - 1
+    if int(lo_req) < lo or int(hi_req) > hi:
+        _vfail(name, f"{what} packed at {buf.bit_width} bits from offset "
+                     f"{lo} cannot represent required range "
+                     f"[{int(lo_req)}, {int(hi_req)}]")
+
+
+def _check_runs(name: str, starts, ends, n: int, nrows: int) -> None:
+    """RLE structural invariants: ``n`` in capacity, valid runs sorted,
+    disjoint and inside [0, nrows), sentinel tail == nrows."""
+    s = _host_buf(starts).astype(np.int64)
+    e = _host_buf(ends).astype(np.int64)
+    cap = s.shape[0]
+    if e.shape[0] != cap:
+        _vfail(name, f"starts/ends capacity mismatch ({cap} vs {e.shape[0]})")
+    if not (0 <= n <= cap):
+        _vfail(name, f"run count n={n} outside capacity {cap}")
+    vs, ve = s[:n], e[:n]
+    if n:
+        if vs[0] < 0 or int(ve.max()) >= nrows:
+            _vfail(name, f"runs escape [0, {nrows})")
+        if (ve < vs).any():
+            _vfail(name, "run end precedes start")
+        if n > 1 and (vs[1:] <= ve[:-1]).any():
+            _vfail(name, "runs overlap or are not sorted")
+    if (s[n:] != nrows).any() or (e[n:] != nrows).any():
+        _vfail(name, f"run sentinel tail != nrows ({nrows})")
+
+
+def _check_positions(name: str, positions, n: int, nrows: int) -> None:
+    """Index structural invariants: strictly increasing valid positions
+    inside [0, nrows), sentinel tail == nrows."""
+    p = _host_buf(positions).astype(np.int64)
+    cap = p.shape[0]
+    if not (0 <= n <= cap):
+        _vfail(name, f"position count n={n} outside capacity {cap}")
+    vp = p[:n]
+    if n:
+        if vp[0] < 0 or int(vp.max()) >= nrows:
+            _vfail(name, f"positions escape [0, {nrows})")
+        if n > 1 and (np.diff(vp) <= 0).any():
+            _vfail(name, "positions not strictly increasing")
+    if (p[n:] != nrows).any():
+        _vfail(name, f"position sentinel tail != nrows ({nrows})")
+
+
+def _widened(domain: Optional[Tuple[int, int]]) -> Optional[Tuple[int, int]]:
+    """RLE/Index value buffers hold literal zeros in capacity padding, so
+    their packed range is the domain widened to include 0."""
+    if domain is None:
+        return None
+    lo, size = int(domain[0]), int(domain[1])
+    return min(lo, 0), max(lo + size - 1, 0)
+
+
+def validate_encoded(col, name: str, nrows: int, dictionary=None,
+                     domain: Optional[Tuple[int, int]] = None,
+                     rows: Optional[int] = None) -> np.ndarray:
+    """Integrity-check one encoded column; returns its decoded host copy.
+
+    Structural: RLE run lists sorted/disjoint/in-bounds with the sentinel
+    tail intact; Index position lists strictly increasing with sentinels;
+    RLE+Index runs and outlier positions disjoint. Packed: every
+    bit-packed buffer wide enough for its required range. Semantic:
+    dictionary codes inside the dictionary, decoded values inside the
+    recorded domain. ``rows`` restricts the semantic checks to the real
+    (unpadded) prefix. Raises ``faults.ValidationError`` on the first
+    violated invariant.
+    """
+    from repro_torch.core.encodings import decode_column
+
+    def check(c, what: str, dom) -> None:
+        if isinstance(c, PlainColumn):
+            vals = _host_buf(c.values)
+            if vals.shape[0] != nrows:
+                _vfail(name, f"{what} length {vals.shape[0]} != nrows "
+                             f"{nrows}")
+            if dom is not None:
+                lo, size = int(dom[0]), int(dom[1])
+                _check_packed_width(c.values, name, what, lo, lo + size - 1)
+        elif isinstance(c, RLEColumn):
+            _check_runs(name, c.starts, c.ends, int(c.n), nrows)
+            _check_packed_width(c.starts, name, f"{what} starts", 0, nrows)
+            _check_packed_width(c.ends, name, f"{what} ends", 0, nrows)
+            wd = _widened(dom)
+            if wd is not None:
+                _check_packed_width(c.values, name, f"{what} values",
+                                    wd[0], wd[1])
+        elif isinstance(c, IndexColumn):
+            _check_positions(name, c.positions, int(c.n), nrows)
+            _check_packed_width(c.positions, name, f"{what} positions",
+                                0, nrows)
+            wd = _widened(dom)
+            if wd is not None:
+                _check_packed_width(c.values, name, f"{what} values",
+                                    wd[0], wd[1])
+        elif isinstance(c, PlainIndexColumn):
+            base = _host_buf(c.base.values)
+            if base.shape[0] != nrows:
+                _vfail(name, f"{what} base length {base.shape[0]} != "
+                             f"nrows {nrows}")
+            # base and outlier buffers pack at buffer-derived ranges: only
+            # the outlier index structure is width-checkable
+            check(c.outliers, f"{what} outliers", None)
+        elif isinstance(c, RLEIndexColumn):
+            check(c.rle, f"{what} rle", dom)
+            check(c.idx, f"{what} idx", dom)
+            # runs and outlier positions must partition the row space
+            # disjointly: a row covered by both has two values
+            nr, ni = int(c.rle.n), int(c.idx.n)
+            if nr and ni:
+                vs = _host_buf(c.rle.starts).astype(np.int64)[:nr]
+                ve = _host_buf(c.rle.ends).astype(np.int64)[:nr]
+                vp = _host_buf(c.idx.positions).astype(np.int64)[:ni]
+                j = np.searchsorted(vs, vp, side="right") - 1
+                inside = (j >= 0) & (vp <= ve[np.maximum(j, 0)])
+                if inside.any():
+                    p = int(vp[inside][0])
+                    _vfail(name, f"{what}: position {p} falls inside an "
+                                 "RLE run (runs and outliers overlap)")
+        else:
+            _vfail(name, f"unknown column type {type(c).__name__}")
+
+    check(col, "values", domain)
+    decoded = to_numpy(decode_column(col))
+    k = nrows if rows is None else min(int(rows), nrows)
+    body = decoded[:k]
+    if k and dictionary is not None:
+        lo, hi = int(body.min()), int(body.max())
+        if lo < 0 or hi >= len(dictionary):
+            _vfail(name, f"dictionary codes [{lo}, {hi}] escape the "
+                         f"{len(dictionary)}-entry dictionary")
+    if k and domain is not None and decoded.dtype.kind in "iu":
+        lo, size = int(domain[0]), int(domain[1])
+        blo, bhi = int(body.min()), int(body.max())
+        if blo < lo or bhi >= lo + size:
+            _vfail(name, f"decoded values [{blo}, {bhi}] escape the "
+                         f"recorded domain [{lo}, {lo + size})")
+    return decoded

@@ -13,7 +13,10 @@ numpy:
                 "fields": {field: np.ndarray | int | float | <column>}}
 
 Buffers are numpy arrays (0-d for counts ``n`` and for ``offset``);
-static fields (``nrows``, ``bit_width``) are Python ints. A test builds
+static fields (``nrows``, ``bit_width``) are Python ints. A packed
+leaf's ``words`` are uint32 lanes in a description, as the reference
+holds them; the port holds the same 32-bit patterns viewed as int32, so
+they cross in both directions as a view, never widened. A test builds
 the description of a ``repro`` table with ``np.asarray`` on each leaf;
 ``table_from_numpy`` then gives a port ``Table`` holding the same encoded
 buffers, so both packages run the same encoded data.
@@ -48,6 +51,9 @@ def column_from_numpy(desc: dict, device):
             kw[name] = int(value)
         elif name == "offset":
             kw[name] = np.asarray(value).item()  # host scalar
+        elif name == "words":  # uint32 lanes -> the same bits as int32
+            a = np.array(value, copy=True, order="C").view(np.int32)
+            kw[name] = torch.from_numpy(a).to(device)
         else:
             a = np.array(value, copy=True, order="C")  # writable host copy
             t = torch.from_numpy(a).to(device)
@@ -77,6 +83,8 @@ def column_to_numpy(col) -> dict:
             fields[f.name] = column_to_numpy(value)
         elif f.name in _STATIC:
             fields[f.name] = int(value)
+        elif f.name == "words":  # int32 view -> the reference's uint32 lanes
+            fields[f.name] = to_numpy(value).view(np.uint32)
         else:
             fields[f.name] = np.asarray(to_numpy(value))
     return {"type": type(col).__name__, "fields": fields}

@@ -111,9 +111,19 @@ def fill_scalar(fill, dtype: torch.dtype, device) -> torch.Tensor:
 class PackedColumn:
     """Bit-packed integer buffer leaf (DESIGN.md §11).
 
-    The port keeps the type so encodings compare structurally with the
-    reference, but packed reads arrive with the out-of-core slice: any
-    read raises ``NotImplementedError`` (ROADMAP queue B5).
+    Stands in for a tensor in the buffer slots of the other encodings
+    (plain values / dictionary codes, RLE values/starts/ends, index
+    values/positions): unsigned ``bit_width``-bit codes densely packed into
+    32-bit lanes, logical value = code + ``offset`` (int32 wrap-add).
+    ``words`` is an int32 tensor holding the uint32 lanes' bit patterns
+    (torch has no full uint32 arithmetic); ``offset`` is a host integer.
+    Packing happens on the host at ingest (``compress.pack_array``).
+
+    Unpacking is lazy and on the device: readers call ``unpack_values`` /
+    ``.unpack()``, which routes through ``dispatch.unpack`` (the CUDA
+    ``unpack_kernel`` on the card). ``nrows`` is the logical element count
+    of the packed vector: rows for a plain payload, capacity for run/point
+    buffers.
     """
 
     words: torch.Tensor
@@ -132,6 +142,10 @@ class PackedColumn:
     @property
     def dtype(self):
         return torch.int32  # logical (unpacked) dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.words.device
 
     def unpack(self) -> torch.Tensor:
         from repro_torch.kernels import dispatch
@@ -289,6 +303,36 @@ class RLEIndexMask:
 
 DataColumn = (PlainColumn, RLEColumn, IndexColumn, PlainIndexColumn, RLEIndexColumn)
 MaskColumn = (PlainMask, RLEMask, IndexMask, RLEIndexMask)
+
+
+def map_tensors(fn, tree):
+    """``tree`` with ``fn`` applied to every tensor in it: the fields of an
+    encoded column (nested encodings and packed leaves included), or the
+    values of a dict / list / tuple of them. Host scalars (``offset``)
+    and static fields pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def tensor_leaves(tree) -> list:
+    """Every tensor of ``tree`` (see ``map_tensors``), in field order."""
+    out = []
+
+    def keep(t):
+        out.append(t)
+        return t
+
+    map_tensors(keep, tree)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import primitives as prim
@@ -40,6 +41,7 @@ from repro_torch.core.encodings import (
     unpack_values,
     valid_slots,
 )
+from repro_torch.device import to_numpy
 from repro_torch.kernels import dispatch
 
 _I32 = torch.iinfo(torch.int32)
@@ -352,3 +354,108 @@ def groupby_aggregate(
             for name in group_names}
     return GroupByResult(keys=keys, aggs=out, num_groups=num_groups,
                          valid=gvalid)
+
+
+# ---------------------------------------------------------------------------
+# Cross-partition merge (partitioned execution, DESIGN.md §4)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MergedGroupBy:
+    """Host-side merged group-by result: exact-size numpy arrays, groups in
+    lexicographic key order (np.unique)."""
+
+    keys: Dict[str, np.ndarray]
+    aggs: Dict[str, np.ndarray]
+    num_groups: int
+
+
+def _reduce_into_groups(vals: np.ndarray, inv: np.ndarray, ng: int,
+                        agg: str) -> np.ndarray:
+    """Reduce concatenated per-group values under one combine rule."""
+    if agg in ("sum", "count"):
+        acc = np.zeros((ng,), vals.dtype)
+        np.add.at(acc, inv, vals)
+        return acc
+    if agg == "min":
+        acc = np.full((ng,), np.inf, np.float64)
+        np.minimum.at(acc, inv, vals)
+        return acc.astype(vals.dtype)
+    acc = np.full((ng,), -np.inf, np.float64)  # max
+    np.maximum.at(acc, inv, vals)
+    return acc.astype(vals.dtype)
+
+
+def fold_groupby_partial(acc, r: GroupByResult, group_names: Sequence[str],
+                         partial_specs):
+    """Fold ONE partition's GroupByResult partial into the running merged
+    state (host side): the incremental half of ``merge_groupby_partials``
+    for the streamed executor (``core/stream.py``).
+
+    ``acc`` is ``None`` or ``{"keys": uniq2d, "aggs": {out: vals},
+    "key_dtypes": [...]}`` with groups in lexicographic key order. The
+    host copies here are where the host waits for the partition's device
+    values. Folding in partition order is bit-identical to the batch
+    merge: each group's contributions accumulate left to right in both.
+    """
+    ng = int(r.num_groups)
+    if ng == 0:
+        return acc
+    cols = [to_numpy(r.keys[g])[:ng] for g in group_names]
+    block_keys = np.stack(cols, axis=1)
+    block_aggs = {o: to_numpy(r.aggs[o])[:ng] for o, _, _ in partial_specs}
+    if acc is None:
+        return {"keys": block_keys, "aggs": block_aggs,
+                "key_dtypes": [c.dtype for c in cols]}
+    all_keys = np.concatenate([acc["keys"], block_keys], axis=0)
+    if all_keys.shape[1] == 1:
+        # the 1-D np.unique is far faster than the axis=0 (void view +
+        # lexsort) path for the common single-key group-by
+        u1, inv = np.unique(all_keys[:, 0], return_inverse=True)
+        uniq = u1[:, None]
+    else:
+        uniq, inv = np.unique(all_keys, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    ng2 = uniq.shape[0]
+    merged = {o: _reduce_into_groups(
+        np.concatenate([acc["aggs"][o], block_aggs[o]]), inv, ng2, agg)
+        for o, agg, _ in partial_specs}
+    return {"keys": uniq, "aggs": merged, "key_dtypes": acc["key_dtypes"]}
+
+
+def finalize_groupby_partials(acc, group_names: Sequence[str],
+                              specs: Sequence[Tuple[str, str, Optional[str]]]
+                              ) -> MergedGroupBy:
+    """Finalize a folded group-by state (avg = sum / count, key dtype
+    restoration); ``acc=None`` (every partition skipped or empty) yields
+    the empty result."""
+    from repro_torch.core import plan as plan_mod
+
+    _, finalize = plan_mod.decompose_specs(specs)
+    if acc is None:
+        keys = {g: np.zeros((0,), np.int32) for g in group_names}
+        aggs = {name: np.zeros((0,), np.float32) for name, _, _ in finalize}
+        return MergedGroupBy(keys=keys, aggs=aggs, num_groups=0)
+    aggs = plan_mod._apply_finalize(acc["aggs"], finalize)
+    keys = {g: acc["keys"][:, i].astype(acc["key_dtypes"][i])
+            for i, g in enumerate(group_names)}
+    return MergedGroupBy(keys=keys, aggs=aggs,
+                         num_groups=acc["keys"].shape[0])
+
+
+def merge_groupby_partials(results: Sequence[GroupByResult],
+                           group_names: Sequence[str],
+                           specs: Sequence[Tuple[str, str, Optional[str]]]):
+    """Re-aggregate per-partition GroupByResult partials on the host: each
+    partial output merges under its combine rule (sum/count add, min/max
+    extremes) and avg finalizes as merged-sum / merged-count. Batch
+    wrapper over ``fold_groupby_partial`` + ``finalize_groupby_partials``.
+    """
+    from repro_torch.core import plan as plan_mod
+
+    partial_specs, _ = plan_mod.decompose_specs(specs)
+    acc = None
+    for r in results:
+        acc = fold_groupby_partial(acc, r, group_names, partial_specs)
+    return finalize_groupby_partials(acc, group_names, specs)

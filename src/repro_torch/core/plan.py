@@ -14,12 +14,13 @@ Appendix D optimization rules implemented here:
   * semi-joins on RLE columns run before those on Plain columns,
   * for RLE group-by columns the filter mask is folded into alignment.
 
-Left for later port slices: ``order_by`` (ROADMAP A10) and
-``explain_analyze`` raise ``NotImplementedError``.
+Left for a later port slice: ``order_by`` (ROADMAP A10) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -599,9 +600,23 @@ class Query:
         return "\n".join(self._explain_lines())
 
     def explain_analyze(self, jit: bool = True) -> str:
-        raise NotImplementedError(
-            "explain_analyze waits for the port's partition/stream telemetry "
-            "(ROADMAP A9)")
+        """EXPLAIN plus one measured execution (EXPLAIN ANALYZE): runs the
+        query with tracing force-enabled and appends the wall time (to the
+        device's completion). The partitioned override adds per-stage ms
+        and partition visit/prune/transfer accounting
+        (``PartitionedQuery.explain_analyze``)."""
+        dev = getattr(self.table, "device", None)
+        with dispatch.overrides(enable_trace=True):
+            t0 = time.perf_counter()
+            self.run(jit=jit)
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        self.last_analysis = {"wall_ms": round(wall, 3)}
+        lines = self._explain_lines()
+        lines.append(f"actual: wall {wall:.3f} ms, one eager program over "
+                     "the resident table")
+        return "\n".join(lines)
 
     def run(self, jit: bool = True):
         """Execute: eager key-set/dimension preparation + the fact pipeline.
@@ -773,6 +788,84 @@ def _decompose_op(op):
     return op
 
 
+def _combine_partials(acc, new, agg):
+    how = _COMBINE[agg]
+    if how == "add":
+        return acc + new
+    return np.minimum(acc, new) if how == "min" else np.maximum(acc, new)
+
+
+def _apply_finalize(partials: Dict[str, np.ndarray], finalize):
+    out = {}
+    for name, kind, operands in finalize:
+        if kind == "identity":
+            out[name] = partials[operands[0]]
+        elif kind == "div":
+            s, c = partials[operands[0]], partials[operands[1]]
+            out[name] = s / np.maximum(c, 1)
+        else:
+            raise ValueError(kind)
+    return out
+
+
+def _identity_partial(agg: str, col: Optional[str], col_dtypes):
+    """Identity element for an aggregate whose every partition was skipped;
+    its dtype derives from the COLUMN's ingest dtype (float32 for unknown
+    columns), so an integer SUM/MIN/MAX stays integer."""
+    if agg == "count":
+        return np.int64(0)
+    dt = (col_dtypes or {}).get(col)
+    if dt is not None and np.issubdtype(np.dtype(dt), np.integer):
+        if agg == "sum":
+            return np.int64(0)
+        return (np.iinfo(np.int64).max if agg == "min"
+                else np.iinfo(np.int64).min)
+    return (np.float32(0) if agg == "sum"
+            else np.float32(np.inf) if agg == "min"
+            else np.float32(-np.inf))
+
+
+def fold_scalar_partial(acc: Optional[Dict[str, np.ndarray]],
+                        partial: Dict[str, object],
+                        partial_specs) -> Dict[str, np.ndarray]:
+    """Fold ONE partition's scalar-aggregate partial into the running
+    accumulator (host side), so the streamed executor merges partial ``i``
+    while partitions ``i+1..i+k`` transfer and compute. The host copy is
+    where the host waits for the partition's device values. Folding in
+    partition order matches the batch merge bit for bit."""
+    block = {o: to_numpy(partial[o]) for o, _, _ in partial_specs}
+    if acc is None:
+        return block
+    return {o: _combine_partials(acc[o], block[o], agg)
+            for o, agg, _ in partial_specs}
+
+
+def finalize_scalar_partials(acc: Optional[Dict[str, np.ndarray]],
+                             specs: Sequence[Tuple[str, str, Optional[str]]],
+                             col_dtypes: Optional[Dict[str, np.dtype]] = None):
+    """Finalize a folded scalar accumulator: identity elements for
+    aggregates with NO surviving partition (dtype from the column's ingest
+    dtype), then the finalize rules (avg = sum / count)."""
+    partial_specs, finalize = decompose_specs(specs)
+    if acc is None:
+        acc = {o: _identity_partial(agg, c, col_dtypes)
+               for o, agg, c in partial_specs}
+    return _apply_finalize(acc, finalize)
+
+
+def merge_scalar_partials(partials: Sequence[Dict[str, object]],
+                          specs: Sequence[Tuple[str, str, Optional[str]]],
+                          col_dtypes: Optional[Dict[str, np.dtype]] = None):
+    """Merge per-partition scalar-aggregate partials (host side): batch
+    wrapper over ``fold_scalar_partial`` + ``finalize_scalar_partials``;
+    ``specs`` are the ORIGINAL (pre-decomposition) specs."""
+    partial_specs, _ = decompose_specs(specs)
+    acc = None
+    for p in partials:
+        acc = fold_scalar_partial(acc, p, partial_specs)
+    return finalize_scalar_partials(acc, specs, col_dtypes)
+
+
 def _mask_cardinality(m):
     """Selected-row count without decoding (run lengths for RLE: §7.2)."""
     if isinstance(m, PlainMask):
@@ -800,12 +893,14 @@ def pk_fk_gather(fact_key_col, dim_keys_sorted: torch.Tensor,
     """Star-schema PK-FK join: per fact *entry* (run / point / row), fetch
     the unique-key dimension payload; the fact key column is never
     decompressed. Returns a column in the fact key's encoding."""
-    from repro_torch.core.encodings import fill_scalar
+    from repro_torch.core.encodings import fill_scalar, unpack_values
 
     def lookup(keys):
+        # packed run/point keys go to the fused unpack->bisect kernel; the
+        # hit test reads the unpacked codes
         slot = dispatch.bucketize(dim_keys_sorted, keys, right=False)
         slot_c = torch.clamp(slot, max=dim_keys_sorted.shape[0] - 1)
-        hit = dim_keys_sorted[slot_c] == keys
+        hit = dim_keys_sorted[slot_c] == unpack_values(keys)
         vals = dim_payload[slot_c]
         return torch.where(hit, vals, fill_scalar(fill, vals.dtype,
                                                   vals.device))

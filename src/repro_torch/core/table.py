@@ -3,7 +3,7 @@
 PyTorch port of ``repro.core.table``. Tables are host-side containers;
 their columns' buffers live on ``device``. String columns are
 dictionary-encoded at ingest (codes on the device, dictionary on the host),
-as in TQP (§2.1). ``validate()`` waits for the ``faults`` port.
+as in TQP (§2.1).
 """
 from __future__ import annotations
 
@@ -88,9 +88,13 @@ class Table:
         overridden per-column via ``encodings``.
 
         ``dictionaries``: pre-computed global dictionaries — ``data`` must
-        already hold codes for those columns. ``pack=True`` raises until
-        bit packing is ported; ``pack_domains`` is accepted for signature
-        parity.
+        already hold codes for those columns.
+
+        ``pack=True`` bit-packs integer buffers at their exact domain
+        width (DESIGN.md §11), unpacked lazily on the device.
+        ``pack_domains`` (name -> ``(lo, size)``) overrides the per-table
+        domains; partitioned ingest passes the GLOBAL domains so all
+        partitions share one bit width per column.
         """
         dev = resolve_device(device)
         if dictionaries is None:
@@ -119,8 +123,16 @@ class Table:
         return self.columns[name]
 
     def validate(self) -> "Table":
-        raise NotImplementedError(
-            "Table.validate waits for the faults port (ROADMAP queue A9)")
+        """Integrity-check every encoded column (DESIGN.md §15): run and
+        position invariants, packed bit widths against the recorded
+        domains, dictionary codes, decoded values against the domains.
+        Raises ``faults.ValidationError``; returns ``self``."""
+        for name, col in self.columns.items():
+            compress.validate_encoded(
+                col, name, self.nrows,
+                dictionary=self.dictionaries.get(name),
+                domain=self.domains.get(name))
+        return self
 
     def decode(self, name: str) -> np.ndarray:
         """Materialize a column to host values (tests / inspection)."""
@@ -145,12 +157,14 @@ class Table:
         return self._sort_orders[name]
 
     def nbytes(self) -> int:
-        """Device footprint of the encoded buffers."""
+        """Footprint of the encoded buffers (bit-packed at packed size)."""
         return sum(compress.encoded_nbytes(c) for c in self.columns.values())
 
     def nbytes_unpacked(self) -> int:
-        """Equal to ``nbytes()`` until bit packing is ported."""
-        return self.nbytes()
+        """Footprint with packed buffers counted at the whole-dtype width
+        the §9 narrowing would use for the same domain (DESIGN.md §11)."""
+        return sum(compress.encoded_nbytes(c, unpacked=True)
+                   for c in self.columns.values())
 
     def encoding_of(self, name: str) -> str:
         return type(self.columns[name]).__name__

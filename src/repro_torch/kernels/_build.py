@@ -3,7 +3,8 @@
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
 ``sm_90a`` into plain shared libraries with an ``extern "C"`` interface,
 loaded with ``ctypes`` (pointers and the stream as ``c_void_p``). One
-``nvcc`` runs per source, all started together. The libraries land in
+``nvcc`` runs per source, all started together; headers (``*.cuh``) are
+hashed with the sources. The libraries land in
 ``build/repro_torch_kernels/<hash>/`` at the checkout root, keyed by a
 hash of the sources and flags, so a fresh checkout builds them on its
 first kernel call and a changed source never loads a stale library.
@@ -28,13 +29,15 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("bucketize.cu", "rle_decode.cu", "segment_reduce.cu")
+SOURCES = ("bucketize.cu", "rle_decode.cu", "segment_reduce.cu", "unpack.cu")
+HEADERS = ("bisect.cuh",)  # included by bucketize.cu and unpack.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 KERNELS = ("bucketize_kernel", "bucketize_count_kernel", "rle_decode_kernel",
-           "segment_sum_kernel")
+           "segment_sum_kernel", "unpack_kernel", "bucketize_packed_kernel",
+           "rle_decode_packed_kernel")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 LARGEST: Dict[str, dict] = {}
 BUILD_INFO: Dict[str, object] = {}
@@ -80,7 +83,7 @@ def nvcc_path() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]

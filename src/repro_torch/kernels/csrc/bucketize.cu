@@ -19,7 +19,7 @@
 //     boundaries in dynamic shared memory once and then walks the queries with a
 //     grid-stride loop, one thread per query, running the same branch-free
 //     bisection as `_bsearch` (bucketize.py:38-51), with the same `cand <= n_b`
-//     guard. Staging once per block, not once per 1024 queries, keeps the
+//     guard (csrc/bisect.cuh, shared with the packed route of unpack.cu). Staging once per block, not once per 1024 queries, keeps the
 //     shared-memory fill off the critical path.
 //   * global route (any B): there is no VMEM ceiling to tile around on Hopper,
 //     so the TPU's O(Q*B) tiled count becomes the same O(Q log B) bisection,
@@ -33,38 +33,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bisect.cuh"
+
 namespace {
+
+using repro::bisect;
+using repro::bisect_steps;
 
 constexpr int kSmemThreads = 1024;
 constexpr int kGlobalThreads = 256;
-
-// The counted predicate, in the comparisons torch.searchsorted uses:
-// right -> !(boundary > q), left -> !(boundary >= q). For numbers this is
-// boundary <= q / boundary < q; a NaN query counts every boundary (NaN sorts
-// above every number, as in jnp.searchsorted).
-template <typename T, bool kRight>
-__device__ __forceinline__ bool counted(T boundary, T q) {
-  return kRight ? !(boundary > q) : !(boundary >= q);
-}
-
-template <typename T, bool kRight, bool kGlobal>
-__device__ __forceinline__ int32_t bisect(const T* b, int64_t nb, int steps,
-                                          T q) {
-  int64_t lo = 0;
-  for (int k = steps - 1; k >= 0; --k) {
-    const int64_t cand = lo + (int64_t(1) << k);
-    if (cand <= nb) {
-      T v;
-      if constexpr (kGlobal) {
-        v = __ldg(b + (cand - 1));
-      } else {
-        v = b[cand - 1];
-      }
-      if (counted<T, kRight>(v, q)) lo = cand;
-    }
-  }
-  return static_cast<int32_t>(lo);
-}
 
 template <typename T, bool kRight>
 __global__ void __launch_bounds__(kSmemThreads)
@@ -94,12 +71,6 @@ __global__ void bucketize_global_kernel(const T* __restrict__ boundaries,
   }
 }
 
-int bisect_steps(int64_t nb) {  // ceil(log2(nb + 1)), at least 1
-  int s = 0;
-  while ((int64_t(1) << s) <= nb) ++s;
-  return s < 1 ? 1 : s;
-}
-
 template <typename T>
 int launch(const void* b, int64_t nb, const void* q, int64_t nq, void* out,
            int right, int global, cudaStream_t stream) {
@@ -120,22 +91,10 @@ int launch(const void* b, int64_t nb, const void* q, int64_t nq, void* out,
   Kernel k = right ? bucketize_smem_kernel<T, true>
                    : bucketize_smem_kernel<T, false>;
   const size_t smem = static_cast<size_t>(nb) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  unsigned grid = 0;
+  cudaError_t err = repro::smem_grid(k, kSmemThreads, smem, nq, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kSmemThreads,
-                                                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) per_sm = 1;
-  int64_t grid = (nq + kSmemThreads - 1) / kSmemThreads;
-  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
-  if (grid > resident) grid = resident;
-  k<<<static_cast<unsigned>(grid), kSmemThreads, smem, stream>>>(bp, nb, steps,
-                                                                qp, op, nq);
+  k<<<grid, kSmemThreads, smem, stream>>>(bp, nb, steps, qp, op, nq);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,8 +35,12 @@ Differences from ``repro.kernels.dispatch``:
     the reference's XLA route: dtypes other than int32/float32 (e.g. the
     int8/int16 centered plain columns), G above the kernel's 4096, integer
     COUNT sums. Each decision is recorded by ``_route``.
-  * ``unpack`` and ``topk`` raise ``NotImplementedError`` until their
-    kernels are ported (ROADMAP queue B5-B8).
+  * Packed queries and packed run values (``PackedColumn``) route to the
+    fused kernels of ``kernels/unpack.py``. The reference's
+    ``MAX_VMEM_WORDS`` ceiling (2M words, a TPU VMEM budget) is gone: the
+    H100 kernels read the words through L2.
+  * ``topk`` raises ``NotImplementedError`` until its kernel is ported
+    (ROADMAP queue B8).
 """
 from __future__ import annotations
 
@@ -55,6 +59,11 @@ from repro_torch.kernels.bucketize import (
 )
 from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import MAX_SEGMENTS, segment_sum_kernel
+from repro_torch.kernels.unpack import (
+    bucketize_packed_kernel,
+    rle_decode_packed_kernel,
+    unpack_kernel,
+)
 
 # dtypes the 1-D kernels handle natively (4-byte words)
 _KERNEL_DTYPES = (torch.int32, torch.float32)
@@ -86,11 +95,11 @@ class DispatchPolicy:
     topk_min_rows: int = 4096
     topk_max_k: int = MAX_KERNEL_K
     enable_entry_order: bool = True
-    # bit packing (DESIGN.md §11, a later port slice)
+    # bit packing (DESIGN.md §11)
     enable_pack: bool = True
     pack_max_bits: int = 24
     unpack_min_vals: int = 0
-    # streamed out-of-core pipeline (core/stream.py, a later port slice)
+    # streamed out-of-core pipeline (core/stream.py)
     prefetch_depth: int = 2
     # query-serving layer (core/serve.py, a later port slice)
     serve_budget_bytes: Optional[int] = None
@@ -99,7 +108,7 @@ class DispatchPolicy:
     # telemetry (core/telemetry.py): span/trace recording.
     enable_trace: bool = False
     trace_buffer_events: int = 1 << 16
-    # fault tolerance (core/faults.py, a later port slice)
+    # fault tolerance (core/faults.py)
     enable_fault_injection: bool = False
     transfer_retries: int = 3
     transfer_backoff_ms: float = 10.0
@@ -236,21 +245,47 @@ def _off_reason(pol: DispatchPolicy) -> str:
     return "kernels off" if pol.use_kernels is False else "inputs not on CUDA"
 
 
-def unpack(packed):
-    """Bit-packed columns arrive with the out-of-core slice."""
-    raise NotImplementedError(
-        "unpack: bit-packed columns are not ported yet (ROADMAP queue B5, "
-        "the unpack kernel, with the partition/stream slice)")
+def unpack(packed) -> torch.Tensor:
+    """Expand a ``PackedColumn`` buffer leaf to its logical int32 values:
+    the CUDA ``unpack_kernel`` when the policy allows, else the plain
+    ``ref_unpack``."""
+    pol = policy()
+    n, words = packed.nrows, packed.words
+    on = pol.kernels_enabled(words)
+    if on and n >= pol.unpack_min_vals and words.shape[0] > 0:
+        _route("unpack", "kernel",
+               f"n={n}>=unpack_min_vals={pol.unpack_min_vals}")
+        return unpack_kernel(words, packed.bit_width, packed.offset, n)
+    _route("unpack", "torch",
+           _off_reason(pol) if not on
+           else f"n={n}<unpack_min_vals={pol.unpack_min_vals}"
+           if n < pol.unpack_min_vals else "empty stream")
+    return ref_mod.ref_unpack(words, packed.bit_width, packed.offset, n)
 
 
 def bucketize(boundaries: torch.Tensor, queries, right: bool = True
               ) -> torch.Tensor:
-    """torch.bucketize == searchsorted (right=True -> side='right'), int32."""
-    if _is_packed(queries):
-        raise NotImplementedError(
-            "bucketize over packed queries is not ported yet (ROADMAP queue "
-            "B6, bucketize_packed_kernel)")
+    """torch.bucketize == searchsorted (right=True -> side='right'), int32.
+
+    ``queries`` may be a ``PackedColumn``: the kernel route then runs the
+    fused unpack->bisect kernel (codes extracted in registers, never
+    written to device memory); otherwise the queries are unpacked first."""
     pol = policy()
+    if _is_packed(queries):
+        n_b, n_q = boundaries.shape[0], queries.nrows
+        words = queries.words
+        on = pol.kernels_enabled(boundaries, words)
+        if (on and n_b > 0 and n_q >= pol.bucketize_min_queries
+                and words.shape[0] > 0 and boundaries.dtype == torch.int32):
+            smem = min(pol.bucketize_max_vmem_boundaries, MAX_SMEM_BOUNDARIES)
+            _route("bucketize", "kernel_packed_fused",
+                   f"n_q={n_q}>=bucketize_min_queries="
+                   f"{pol.bucketize_min_queries}, n_b={n_b} "
+                   + ("fits shared memory" if n_b <= smem else "through L2"))
+            return bucketize_packed_kernel(
+                boundaries.contiguous(), words, queries.bit_width,
+                queries.offset, n_q, right, global_route=n_b > smem)
+        queries = unpack(queries)
     n_b, n_q = boundaries.shape[0], queries.shape[0]
     on = pol.kernels_enabled(boundaries, queries)
     if (on and n_b > 0 and n_q >= pol.bucketize_min_queries
@@ -278,13 +313,14 @@ def bucketize(boundaries: torch.Tensor, queries, right: bool = True
 def maybe_rle_decode(values, starts, ends, n, nrows: int, fill=0):
     """Kernel-decoded dense [nrows] tensor, or None when the policy routes
     to the caller's formulation (the O(n) scatter+cumsum sweep in
-    ``encodings.decode_rle_values``)."""
-    if _is_packed(values):
-        raise NotImplementedError(
-            "rle_decode over packed run values is not ported yet (ROADMAP "
-            "queue B7, rle_decode_packed_kernel)")
+    ``encodings.decode_rle_values``).
+
+    ``values`` may be a ``PackedColumn``: the kernel route then extracts
+    run values straight from the packed words (no unpacked value buffer
+    in device memory)."""
     pol = policy()
-    on = pol.kernels_enabled(values, starts, ends)
+    packed = _is_packed(values)
+    on = pol.kernels_enabled(values.words if packed else values, starts, ends)
     if not (on and nrows >= pol.rle_decode_min_rows and starts.shape[0] > 0
             and starts.dtype == torch.int32 and ends.dtype == torch.int32):
         _route("rle_decode", "torch",
@@ -293,12 +329,18 @@ def maybe_rle_decode(values, starts, ends, n, nrows: int, fill=0):
                f"{pol.rle_decode_min_rows}"
                if nrows < pol.rle_decode_min_rows else "dtype/empty runs")
         return None
+    n = torch.as_tensor(n, dtype=torch.int32, device=starts.device)
+    if packed:
+        _route("rle_decode", "kernel_packed_fused",
+               f"nrows={nrows}>=rle_decode_min_rows={pol.rle_decode_min_rows}")
+        return rle_decode_packed_kernel(
+            values.words, values.bit_width, values.offset, starts.shape[0],
+            starts.contiguous(), ends.contiguous(), n, nrows, fill)
     if not _kernel_ok(values):
         _route("rle_decode", "torch", f"value dtype {values.dtype} not routed")
         return None
     _route("rle_decode", "kernel",
            f"nrows={nrows}>=rle_decode_min_rows={pol.rle_decode_min_rows}")
-    n = torch.as_tensor(n, dtype=torch.int32, device=values.device)
     return rle_decode_kernel(values.contiguous(), starts.contiguous(),
                              ends.contiguous(), n, nrows, fill)
 

@@ -12,6 +12,7 @@ zero rows or segments) take the plain path, as ``repro.kernels.ops`` does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.device import as_tensor
@@ -23,6 +24,7 @@ from repro_torch.kernels.bucketize import (
 )
 from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import MAX_SEGMENTS, segment_sum_kernel
+from repro_torch.kernels.unpack import unpack_kernel
 
 
 def bucketize(boundaries, queries, right: bool = True, use_kernel: bool = False,
@@ -63,3 +65,17 @@ def segment_reduce(values, segment_ids, num_segments: int, reduce: str = "sum",
             or num_segments == 0 or v.shape[0] == 0):
         return ref.ref_segment_reduce(v, ids, num_segments, reduce)
     return segment_sum_kernel(v.to(torch.float32), ids, num_segments)
+
+
+def unpack(words, bit_width: int, offset, nvals: int, use_kernel: bool = False,
+           device=None) -> torch.Tensor:
+    """Expand a packed stream to int32[nvals]. Host words (uint32 lanes, as
+    ``compress.pack_array`` gives them) cross as the same bit patterns
+    viewed as int32."""
+    if isinstance(words, torch.Tensor):
+        w = words
+    else:
+        w = as_tensor(np.ascontiguousarray(words).view(np.int32), device)
+    if not use_kernel or nvals == 0:
+        return ref.ref_unpack(w, bit_width, offset, nvals)
+    return unpack_kernel(w.contiguous(), bit_width, offset, nvals)

@@ -5,7 +5,10 @@ exactly for integer outputs and within tolerance for float reductions.
 They are the functions the kernel wrappers run on CPU tensors, what
 ``chip_smoke.py`` holds each kernel against on the card, and the twins of
 ``repro.kernels.ref`` that the CPU tests hold against the JAX package.
-``ref_unpack`` arrives with the packed-column slice.
+
+Packed words travel as int32 tensors holding the uint32 bit patterns
+(torch on the CPU has no uint32 shifts or gathers): the packed versions
+widen them to int64 with ``& 0xFFFFFFFF`` and shift there.
 """
 from __future__ import annotations
 
@@ -73,3 +76,58 @@ def ref_segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
                             else "amin", include_self=True)
         return out[:g]
     raise ValueError(reduce)
+
+
+def _extract(words: torch.Tensor, idx: torch.Tensor,
+             bit_width: int) -> torch.Tensor:
+    """Unsigned codes (int64) at positions ``idx`` of a packed stream.
+
+    ``words`` holds the uint32 lanes as int32 bit patterns; value ``i``
+    occupies bits ``[i*b, i*b + b)`` of the stream, little-endian within
+    each lane (``repro.kernels.unpack._extract``). ``i*b`` is an int64
+    product. Positions past the stream's end read clamped lanes and return
+    garbage; callers slice or mask them away.
+    """
+    nwords = words.shape[0]
+    lanes = words.to(torch.int64) & 0xFFFFFFFF
+    bit = idx.to(torch.int64) * bit_width
+    w = bit >> 5
+    off = bit & 31
+    lo = lanes[w.clamp(0, nwords - 1)] >> off
+    # the straddle's contribution: the low ``off`` bits of the next lane,
+    # placed above the 32 - off bits taken from this one (0 when off == 0)
+    hi = lanes[(w + 1).clamp(0, nwords - 1)] & ((1 << off) - 1)
+    return (lo | (hi << (32 - off))) & ((1 << bit_width) - 1)
+
+
+def _to_signed(codes: torch.Tensor, offset) -> torch.Tensor:
+    """``code + offset`` as an int32 wrap-add (the reference bitcasts the
+    code to int32 and adds ``offset``): width-32 passthrough is exact."""
+    v = (codes + int(offset)) & 0xFFFFFFFF
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def ref_unpack(words: torch.Tensor, bit_width: int, offset,
+               nvals: int) -> torch.Tensor:
+    """Expand a bit-packed stream to int32[nvals] (DESIGN.md §11): value i
+    is bits [i*b, i*b+b) of the stream, plus ``offset`` with int32 wrap."""
+    if nvals == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=words.device)
+    idx = torch.arange(nvals, dtype=torch.int64, device=words.device)
+    return _to_signed(_extract(words, idx, bit_width), offset)
+
+
+def ref_bucketize_packed(boundaries: torch.Tensor, words: torch.Tensor,
+                         bit_width: int, offset, nvals: int,
+                         right: bool = True) -> torch.Tensor:
+    """``bucketize(boundaries, unpack(words))`` as int32 counts."""
+    return ref_bucketize(boundaries,
+                         ref_unpack(words, bit_width, offset, nvals), right)
+
+
+def ref_rle_decode_packed(words: torch.Tensor, bit_width: int, offset,
+                          cap: int, starts: torch.Tensor, ends: torch.Tensor,
+                          n, nrows: int, fill=0) -> torch.Tensor:
+    """``rle_decode`` whose ``cap`` run values are packed in ``words``."""
+    values = ref_unpack(words, bit_width, offset, cap)
+    return ref_rle_decode(values, starts, ends, n, nrows, fill)

@@ -94,3 +94,35 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_every_cuda_source_is_built_with_a_plain_c_interface():
+    """Every ``.cu`` under ``csrc/`` is one of ``_build.SOURCES`` and every
+    header one of ``_build.HEADERS``; none includes PyTorch's headers (the
+    libraries are plain ``extern "C"`` loaded with ctypes), and each
+    source names the TPU kernel it replaces."""
+    from repro_torch.kernels import _build
+    csrc = PORT / "kernels" / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.SOURCES)
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(_build.HEADERS)
+    for path in sorted(csrc.iterdir()):
+        text = path.read_text()
+        assert "torch/" not in text and "ATen/" not in text, path.name
+        if path.suffix == ".cu":
+            assert 'extern "C"' in text and "src/repro/kernels/" in text, \
+                path.name
+    assert {"unpack_kernel", "bucketize_packed_kernel",
+            "rle_decode_packed_kernel"} <= set(_build.KERNELS)
+    assert set(_build.LAUNCHES) == set(_build.KERNELS)
+
+
+def test_kernel_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """A change to ``bisect.cuh`` alone must give a new build directory, or
+    a stale library of ``bucketize.cu`` / ``unpack.cu`` would load."""
+    from repro_torch.kernels import _build
+    before = _build.source_digest()
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    (copy / "bisect.cuh").write_text((copy / "bisect.cuh").read_text() + "\n")
+    monkeypatch.setattr(_build, "CSRC", copy)
+    assert _build.source_digest() != before

@@ -292,7 +292,11 @@ def test_dispatch_routes_are_recorded(rng, forced, path):
 
 
 def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match="B5"):
-        dispatch.unpack(None)
+    """Only top-k is left (B8); the packed routes (B5-B7) are ported."""
     with pytest.raises(NotImplementedError, match="B8"):
         dispatch.topk(torch.zeros(4), 2)
+    from repro_torch.core.encodings import PackedColumn
+    words = torch.tensor([0b1110_0100], dtype=torch.int32)  # 0,1,2,3 at 2 bits
+    got = dispatch.unpack(PackedColumn(words=words, nrows=4, bit_width=2,
+                                       offset=-1))
+    assert got.tolist() == [-1, 0, 1, 2]

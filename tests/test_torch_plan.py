@@ -163,8 +163,10 @@ def test_unported_query_features_raise(tpch):
     tt = TTable.from_arrays({"a": np.arange(10, dtype=np.int32)}, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         TQuery(tt).order_by("a", limit=3)
-    with pytest.raises(NotImplementedError):
-        TQuery(tt).aggregate({"c": ("count", None)}).explain_analyze()
+    # explain_analyze arrived with the out-of-core slice
+    q = TQuery(tt).aggregate({"c": ("count", None)})
+    assert "actual: wall" in q.explain_analyze()
+    assert q.last_analysis["wall_ms"] >= 0
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,8 @@ def describe(col) -> dict:
             fields[f.name] = describe(value)
         elif f.name in ("nrows", "bit_width"):
             fields[f.name] = int(value)
+        elif f.name == "words":  # packed lanes: the port holds int32 views
+            fields[f.name] = host(value).view(np.uint32)
         else:
             fields[f.name] = host(value)
     return {"type": type(col).__name__, "fields": fields}
@@ -223,3 +225,52 @@ def index_col_twins(vals, present, slack=4, cap=None):
     n = len(vals)
     return (JE.make_index(vals[pos], pos, n, capacity=cap),
             TE.make_index(vals[pos], pos, n, capacity=cap, device=CPU))
+
+
+SIX_ENCODINGS = ["plain", "plain_dict", "rle", "index", "rle_index",
+                 "plain_index"]
+
+
+def six_encoding_data(rng, enc, n=12_000):
+    """(data, encodings) whose key ``k`` and value ``v`` columns take one
+    of the six ingest encodings (``plain_dict``: a string key), plus a
+    float measure ``f`` (the reference's partition/stream/fault tests)."""
+    k = np.sort(rng.integers(0, 40, n)).astype(np.int32)
+    v = rng.integers(0, 2000, n).astype(np.int32)
+    f = rng.random(n).astype(np.float32)
+    if enc == "plain_index":
+        v = np.where(rng.random(n) < 0.002, 1_500_000_000, v).astype(np.int32)
+    if enc == "plain_dict":
+        vocab = np.array([f"key_{i:03d}" for i in range(40)])
+        return {"k": vocab[k], "v": v, "f": f}, None
+    return {"k": k, "v": v, "f": f}, {"k": enc, "v": enc}
+
+
+def result_payload(r):
+    """Comparable host payload of a query result of either package: a
+    merged group-by, a scalar-aggregate dict, or a resident GroupByResult
+    (trimmed to its live groups)."""
+    if hasattr(r, "num_groups"):
+        ng = int(host(r.num_groups)) if not isinstance(r.num_groups, int) \
+            else r.num_groups
+        return {**{f"k:{g}": host(r.keys[g])[:ng] for g in r.keys},
+                **{f"a:{o}": host(r.aggs[o])[:ng] for o in r.aggs}}
+    return {o: host(r[o]) for o in r}
+
+
+def assert_payload_same(want, got, what=""):
+    """Bit-identical payloads (same keys, dtypes and bytes)."""
+    assert set(want) == set(got), what
+    for k in want:
+        assert_same(want[k], got[k], f"{what} {k}")
+
+
+def assert_payload_close(want, got, what="", rtol=1e-4):
+    """Payloads equal in dtype; integers exactly, floats within rtol."""
+    assert set(want) == set(got), what
+    for k in want:
+        w, g = np.asarray(want[k]), np.asarray(got[k])
+        if w.dtype.kind == "f" or g.dtype.kind == "f":
+            assert_close(w, g, f"{what} {k}", rtol=rtol, atol=1e-6)
+        else:
+            assert_same(w, g, f"{what} {k}")

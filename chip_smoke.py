@@ -10,14 +10,18 @@ first error:
 1. Prints the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions, and the time to build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
-2. Kernel checks: each of the seven kernels against its plain PyTorch
+2. Kernel checks: each of the eight kernels against its plain PyTorch
    version on the card, on edge cases (empty inputs, ragged tails,
    duplicates, right=True/False, int32/float32, sentinel-padded
    boundaries, gaps with a non-zero fill, out-of-range ids; for the packed
    kernels every bit width of {1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32},
    values straddling lanes, N = 0 and 1, negative offsets, width-32 wrap,
    boundaries above the shared-memory route, a partially covered RLE with
-   ``n < cap``). Integer outputs and the decoders must be equal;
+   ``n < cap``; for topk int32 and float32, n in {0, 1, 7, 2047, 2048,
+   2049, 1_000_003} by k in {1, 8, 37, 128, 256}, all-equal inputs,
+   INT32_MIN rows, +-inf, signed zeros and an input of five survivor
+   passes). Integer outputs, the decoders and topk must be equal (topk
+   values and indices, and bit-identical across two launches);
    segment_sum must be within rtol=1e-4 of a float64 host sum and
    bit-identical across two launches.
 3. Resident query phase: TPC-H-shaped LINEITEM (each query sorted by its
@@ -42,12 +46,27 @@ first error:
    bandwidth measured here with one 1 GiB copy). Launch counts are zeroed
    just before the phase and read just after; the run fails if any of the
    three packed kernels was not launched.
-5. Kernel timing at the largest inputs the main path gave each kernel:
+5. Ordering phase (ORDER BY / TOP-K): R1, a row-level top-100 by the
+   Plain float ``price`` after ``shipdate <= 2400`` on the Q1-ordered
+   table (``topk_kernel`` over the dense rank keys); R2, a top-1000 by
+   (``quantity`` desc, ``shipdate`` asc) on the Q6-ordered table (RLE
+   keys: the bounded-histogram path, no kernel); Q3r, Q3 ranked by
+   (``revenue`` desc, ``orderdate`` asc), top 10 (group slots ranked after
+   the join and group-by). Each runs on the resident table and streamed
+   over the out-of-core phase's packed partitions at prefetch depth 0, 1
+   and 2. Answers must equal a numpy oracle (``np.lexsort``, stable, over
+   the candidates of an ``np.partition`` threshold; positions and integer
+   columns exactly, Q3r's float sums within rtol=1e-4), re-runs and
+   depths must be bit-identical, streamed R1 and R2 bit-identical to
+   resident, and R2 must prune partitions by rank. Launch counts are zeroed
+   just before the phase and read just after; the run fails if
+   ``topk_kernel`` was not launched.
+6. Kernel timing at the largest inputs the main path gave each kernel:
    kernel, plain-version and (where one PyTorch call computes the same
    function) library times by CUDA events, median of 10 after warm-up,
    beside the least time the card could take (bytes over 3.35 TB/s, or
    operations over 67 TFLOP/s, whichever is larger).
-6. A ``{"kernels": [...]}`` summary line, then as the last line
+7. A ``{"kernels": [...]}`` summary line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 The script imports neither JAX nor the JAX package; the TPC-H generators
@@ -86,6 +105,8 @@ KERNEL_INFO = {
                                 "src/repro/kernels/unpack.py:122"),
     "rle_decode_packed_kernel": ("src/repro_torch/kernels/csrc/unpack.cu",
                                  "src/repro/kernels/unpack.py:169"),
+    "topk_kernel": ("src/repro_torch/kernels/csrc/topk.cu",
+                    "src/repro/kernels/topk.py:119"),
 }
 RESIDENT_KERNELS = ("bucketize_kernel", "bucketize_count_kernel",
                     "rle_decode_kernel", "segment_sum_kernel")
@@ -93,6 +114,9 @@ PACKED_KERNELS = ("unpack_kernel", "bucketize_packed_kernel",
                   "rle_decode_packed_kernel")
 PACK_BITS = (1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32)
 OOC_QUERIES = ("Q1", "Q6", "Q17", "Q3")  # the out-of-core phase's queries
+# the ordering phase's queries and the LINEITEM sort order each reads
+RANKED_SOURCE = {"R1": "Q1", "R2": "Q6", "Q3r": "Q3"}
+ORDER_KERNELS = ("topk_kernel",)
 
 # ---------------------------------------------------------------------------
 # TPC-H-shaped data (copies of benchmarks/bench_tpch.py's generators)
@@ -108,8 +132,30 @@ SORT_ORDERS = {
 }
 
 
-def make_lineitem(rng, n, order=None):
-    """LINEITEM-like columns, globally sorted by ``order`` (paper §9.1.1)."""
+def _sort_perm(cols, order, device=None):
+    """``np.lexsort`` of the ``order`` columns (first most significant) as
+    one stable argsort of a mixed-radix int64 composite key: the same
+    permutation, sorted on ``device`` (a CUDA device: the card sorts 60M
+    keys in milliseconds, where numpy takes tens of seconds)."""
+    key = np.zeros(len(cols[order[0]]), np.int64)
+    span_total = 1
+    for c in order:
+        v = cols[c].astype(np.int64)
+        lo, span = int(v.min()), int(v.max()) - int(v.min()) + 1
+        span_total *= span
+        if span_total >= 2**62:
+            raise ValueError("sort key domain too large for one int64 key")
+        key = key * span + (v - lo)
+    if device is None or getattr(device, "type", device) == "cpu":
+        return np.argsort(key, kind="stable")
+    import torch
+    dev_key = torch.from_numpy(key).to(device)
+    return torch.argsort(dev_key, stable=True).cpu().numpy()
+
+
+def make_lineitem(rng, n, order=None, device=None):
+    """LINEITEM-like columns, globally sorted by ``order`` (paper §9.1.1);
+    ``device`` sorts on the card (the same permutation)."""
     cols = {
         "returnflag": rng.integers(0, 3, n).astype(np.int32),
         "linestatus": rng.integers(0, 2, n).astype(np.int32),
@@ -122,7 +168,7 @@ def make_lineitem(rng, n, order=None):
         "orderkey": rng.integers(0, n // 4, n).astype(np.int32),
     }
     if order:
-        perm = np.lexsort(tuple(cols[c] for c in reversed(order)))
+        perm = _sort_perm(cols, order, device)
         cols = {k: v[perm] for k, v in cols.items()}
     return cols
 
@@ -193,6 +239,83 @@ def build_query(name, table, orders_table=None, part_keys=None,
     raise ValueError(name)
 
 
+def build_ranked(name, table, orders_table=None, query_cls=None):
+    """The ranked query ``name`` (R1, R2 or Q3r) staged on ``table``."""
+    from repro_torch.core.plan import Query, col
+
+    Query = query_cls or Query  # noqa: N806
+    if name == "R1":
+        return (Query(table).filter(col("shipdate") <= 2400)
+                .order_by("price", descending=True, limit=100,
+                          cols=["orderkey", "quantity"]))
+    if name == "R2":
+        return Query(table).order_by(["quantity", "shipdate"],
+                                     descending=[True, False], limit=1000,
+                                     cols=["price"])
+    if name == "Q3r":
+        return build_query("Q3", table, orders_table,
+                           query_cls=query_cls).order_by(
+            ["revenue", "orderdate"], descending=[True, False], limit=10)
+    raise ValueError(name)
+
+
+def _top_rows(keys, rows, limit):
+    """Positions of the ``limit`` best rows by ``keys`` (primary first,
+    smaller = better; ties to the lowest row): ``np.lexsort`` over the
+    rows whose primary key is within the ``limit``-th best."""
+    p = keys[0]
+    if len(p) > limit:
+        kth = np.partition(p, limit - 1)[limit - 1]
+        cand = p <= kth
+        keys, rows = tuple(k[cand] for k in keys), rows[cand]
+    order = np.lexsort((rows,) + tuple(reversed(keys)))[:limit]
+    return rows[order]
+
+
+def ranked_oracle(name, d, q3_want=None):
+    """The ranked query's answer with numpy: ``{"positions", "columns"}``
+    for R1 and R2, Q3's oracle groups reordered for Q3r."""
+    if name == "R1":
+        rows = np.flatnonzero(d["shipdate"] <= 2400)
+        pos = _top_rows((-d["price"][rows].astype(np.float64),), rows, 100)
+        cols = ("orderkey", "quantity", "price")
+    elif name == "R2":
+        rows = np.arange(len(d["quantity"]))
+        pos = _top_rows((-d["quantity"].astype(np.int64),
+                         d["shipdate"].astype(np.int64)), rows, 1000)
+        cols = ("price", "quantity", "shipdate")
+    elif name == "Q3r":
+        order = np.lexsort((q3_want["keys"]["orderdate"],
+                            -q3_want["aggs"]["revenue"]))[:10]
+        return {"num_groups": len(order),
+                "keys": {k: v[order] for k, v in q3_want["keys"].items()},
+                "aggs": {k: v[order] for k, v in q3_want["aggs"].items()}}
+    else:
+        raise ValueError(name)
+    return {"positions": pos, "n": len(pos),
+            "columns": {c: d[c][pos] for c in cols}}
+
+
+def check_ranked(name, got, want):
+    """A ranked answer against its oracle: positions and every gathered
+    column exactly (they are stored values), group answers as
+    ``check_answer``."""
+    if "keys" in want:
+        if got["num_groups"] != want["num_groups"]:
+            raise AssertionError(f"{name}: {got['num_groups']} groups, "
+                                 f"want {want['num_groups']}")
+        check_answer(name, got, want)
+        return
+    if got["n"] != want["n"] or not np.array_equal(got["positions"],
+                                                   want["positions"]):
+        raise AssertionError(f"{name}: ranked positions differ")
+    if set(got["columns"]) != set(want["columns"]):
+        raise AssertionError(f"{name}: columns {sorted(got['columns'])}")
+    for c, v in want["columns"].items():
+        if not np.array_equal(got["columns"][c], v):
+            raise AssertionError(f"{name}: column {c} differs")
+
+
 def _grouped(keys, sel, weights, domain):
     """Group ids in lexicographic key order + float64 sums per group."""
     present = np.bincount(keys[sel], minlength=domain) > 0
@@ -243,7 +366,11 @@ def oracle(name, d, orders=None, part_keys=None):
 
 def host_result(res):
     """A query result as host numpy arrays (trimmed to the live groups)."""
+    from repro_torch.core.order import RankedTable
     from repro_torch.device import to_numpy
+    if isinstance(res, RankedTable):
+        return {"positions": res.positions, "n": res.n,
+                "columns": dict(res.columns)}
     if isinstance(res, dict):
         return {k: to_numpy(v) for k, v in res.items()}
     ng = int(res.num_groups)
@@ -556,8 +683,65 @@ def packed_edge_cases(dev):
     return cases
 
 
+def topk_edge_cases(dev):
+    """``topk_kernel`` against ``ref.topk`` on the card: values and indices
+    equal, and bit-identical across two launches."""
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import topk as kt
+
+    rng = np.random.default_rng(3)
+    i32min = np.iinfo(np.int32).min
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cases = 0
+
+    def check(x, k, what):
+        got, again = kt.topk_kernel(x, k), kt.topk_kernel(x, k)
+        want = ref.topk(x, k)
+        for a, b, part in ((got[0], want[0], "values"),
+                           (got[1], want[1], "indices")):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"topk_kernel check failed: {what} "
+                                     f"k={k} {part}")
+        bits = [v.view(torch.int32) for v in (got[0], again[0])]
+        if not (torch.equal(*bits) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"topk_kernel not bit-identical: {what}")
+
+    for dtype in (np.int32, np.float32):
+        for n in (0, 1, 7, 2047, 2048, 2049, 1_000_003):
+            x = (rng.integers(-1000, 1000, n) if dtype == np.int32
+                 else rng.standard_normal(n)).astype(dtype)
+            for k in (1, 8, 37, 128, 256):
+                check(t(x), k, f"{dtype.__name__} n={n}")
+                cases += 1
+    specials = {
+        "all equal int32": np.full(100_000, 7, np.int32),
+        "all equal float32": np.full(100_000, 0.5, np.float32),
+        "INT32_MIN rows": np.where(rng.random(50_000) < 0.5, i32min,
+                                   rng.integers(-5, 5, 50_000)).astype(np.int32),
+        "only INT32_MIN, n < k": np.full(5, i32min, np.int32),
+        "+-inf": np.where(rng.random(100_000) < 0.01, np.inf,
+                          np.where(rng.random(100_000) < 0.01, -np.inf,
+                                   rng.standard_normal(100_000))).astype(np.float32),
+        "signed zeros": rng.choice([0.0, -0.0, 1.0, -1.0], 10_000).astype(np.float32),
+    }
+    for what, x in specials.items():
+        for k in (1, 37, 256):
+            check(t(x), k, what)
+            cases += 1
+    n = 3_000_000  # five passes at k = 256
+    x = t(rng.integers(-(2**31), 2**31 - 1, n, endpoint=True).astype(np.int32))
+    before = _build.LAUNCHES["topk_kernel"]
+    check(x, 256, "five survivor passes")
+    launched = (_build.LAUNCHES["topk_kernel"] - before) // 2
+    if launched != kt.passes(n, 256) or launched < 3:
+        raise AssertionError(f"topk_kernel: {launched} passes at n={n}")
+    torch.cuda.synchronize()
+    return cases + 1
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: every kernel at the main path's largest inputs
+# Phase 6: every kernel at the main path's largest inputs
 # ---------------------------------------------------------------------------
 
 
@@ -567,6 +751,7 @@ def kernel_timing(launches):
     from repro_torch.kernels import bucketize as kb
     from repro_torch.kernels.rle_decode import rle_decode_kernel
     from repro_torch.kernels.segment_reduce import segment_sum_kernel
+    from repro_torch.kernels import topk as kt
     from repro_torch.kernels import unpack as ku
 
     rows = []
@@ -661,6 +846,24 @@ def kernel_timing(launches):
             nbytes = 4 * w.shape[0] + 8 * cap + 4 + 4 * nrows
             nops = nrows * _steps(cap)
             k_ms, p_ms, lib_ms = time_ms(kern), time_ms(plain), None
+        elif name == "topk_kernel":
+            x, k = rec["values"], rec["k"]
+            got, want = kt.topk_kernel(x, k), ref.topk(x, k)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{name} disagrees at the query shape")
+            err = 0.0
+            n = x.shape[0]
+            shape = {"values": n, "dtype": str(x.dtype), "k": k,
+                     "k_pow2": kt.k_pow2_of(k), "passes": kt.passes(n, k)}
+            # keys read once, k (value, index) pairs written; at least one
+            # comparison a key
+            nbytes, nops = 4 * n + 8 * k, n
+            k_ms = time_ms(lambda: kt.topk_kernel(x, k))
+            p_ms = time_ms(lambda: ref.topk(x, k))
+            # same values; its tie order is not documented
+            lib_ms = time_ms(lambda: torch.topk(x, k))
+            lib_what = "torch.topk"
         else:
             v, ids, g = rec["values"], rec["segment_ids"], rec["num_segments"]
             got = segment_sum_kernel(v, ids, g)
@@ -735,8 +938,9 @@ def profile_run(name, q, out_dir):
 
 def query_phase(sf, dev, runs, profile_dir=None):
     """The resident path. Returns its per-query records and what the
-    out-of-core phase reuses: the LINEITEM arrays of ``OOC_QUERIES``, the
-    oracles and resident answers, ORDERS and the semi-join keys."""
+    later phases reuse: the LINEITEM arrays of ``OOC_QUERIES``, the oracles
+    and resident answers, ORDERS and the semi-join keys, and the resident
+    tables the ordering phase ranks."""
     import torch
     from repro_torch.core import compress
     from repro_torch.core.table import Table
@@ -755,10 +959,11 @@ def query_phase(sf, dev, runs, profile_dir=None):
           flush=True)
     per_query = {}
     shared = {"orders": orders, "orders_table": orders_table,
-              "part_keys": part_keys, "data": {}, "want": {}, "resident": {}}
+              "part_keys": part_keys, "data": {}, "want": {}, "resident": {},
+              "tables": {}, "packed": {}}
     for name in ("Q1", "Q3", "Q6", "Q17", "Q19"):
         t0 = time.perf_counter()
-        data = make_lineitem(rng, n, order=SORT_ORDERS[name])
+        data = make_lineitem(rng, n, order=SORT_ORDERS[name], device=dev)
         gen_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -802,6 +1007,8 @@ def query_phase(sf, dev, runs, profile_dir=None):
             rec["profile"] = profile_run(name, q, profile_dir)
         print(json.dumps(rec), flush=True)
         per_query[name] = rec
+        if name in RANKED_SOURCE.values():  # ranked again, resident
+            shared["tables"][name] = table
         del q, table
         torch.cuda.empty_cache()
     return per_query, shared
@@ -862,7 +1069,9 @@ def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None):
     orders_table, part_keys = shared["orders_table"], shared["part_keys"]
     per_query = {}
     for name in OOC_QUERIES:
-        data = shared["data"].pop(name)
+        data = shared["data"][name]
+        if name not in RANKED_SOURCE.values():
+            del shared["data"][name]
         n = len(data["price"])
         # 8 partitions: 2**23 rows each at scale factor 10
         rows = 1 << max(8, (-(-n // 8) - 1).bit_length())
@@ -957,7 +1166,125 @@ def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None):
                             "bit_identical": True}
         print(json.dumps(rec), flush=True)
         per_query[name] = rec
+        if name in RANKED_SOURCE.values():  # streamed again, ranked
+            shared["packed"][name] = pt
         del tables, pt
+        torch.cuda.empty_cache()
+    return per_query
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: ORDER BY / TOP-K, resident and streamed
+# ---------------------------------------------------------------------------
+
+
+def ordering_phase(dev, shared, runs, profile_dir=None):
+    """R1, R2 and Q3r on the resident tables of the query phase and over
+    the packed partitions of the out-of-core phase (depth 0, 1, 2);
+    returns the per-query records."""
+    import torch
+    from repro_torch.core import telemetry
+    from repro_torch.core.partition import PartitionedQuery
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import topk as kt
+
+    orders_table = shared["orders_table"]
+    per_query = {}
+    for name, src in RANKED_SOURCE.items():
+        data = shared["data"].pop(src)
+        want = ranked_oracle(name, data, shared["want"].get(src))
+        del data
+        table = shared["tables"].pop(src)
+        q = build_ranked(name, table, orders_table)
+        rec = {"query": name, "table": f"LINEITEM sorted for {src}",
+               "path": q._order_path(q.order_op())}
+        results, times = [], []
+        for i in range(runs):
+            before = dict(_build.LAUNCHES)
+            res, ms = _timed_run(q)
+            if i == 0:
+                rec["launches_per_run"] = {
+                    k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}
+            results.append(res)
+            times.append(ms)
+        check_ranked(name, results[0], want)
+        for other in results[1:]:
+            if _bits(other) != _bits(results[0]):
+                raise AssertionError(f"{name}: re-run is not bit-identical")
+        resident = results[0]
+        rec.update({"cold_ms": times[0], "warm_median_ms":
+                    statistics.median(times[1:]) if runs > 1 else None,
+                    "oracle": "ok", "rerun_bit_identical": True})
+        if profile_dir is not None:
+            rec["profile"] = profile_run(name, q, profile_dir)
+        del q, table
+
+        pt = shared["packed"].pop(src)
+        streamed, stimes, moved = {}, {0: [], 1: [], 2: []}, []
+        for depth in (0, 1, 2, 0, 2):
+            before = dict(_build.LAUNCHES)
+            with dispatch.overrides(prefetch_depth=depth), \
+                    telemetry.h2d_listener(lambda nb, tree: moved.append(nb)):
+                sq = build_ranked(name, pt, orders_table,
+                                  query_cls=PartitionedQuery)
+                res, ms = _timed_run(sq)
+            stimes[depth].append(ms)
+            if depth in streamed and _bits(res) != _bits(streamed[depth]):
+                raise AssertionError(f"{name}: streamed depth-{depth} re-run "
+                                     "differs")
+            streamed.setdefault(depth, res)
+            if depth == 2 and "stats_depth2" not in rec:
+                stats = dict(sq.last_stats)
+                rec["stats_depth2"] = {k: stats.get(k, 0) for k in (
+                    "partitions", "executed", "skipped", "ranked_skipped",
+                    "prefetch_wasted", "transferred", "h2d_ms", "compute_ms",
+                    "merge_ms", "prefetch_depth")}
+                rec["streamed_launches_per_run"] = {
+                    k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}
+        for depth in (1, 2):
+            if _bits(streamed[depth]) != _bits(streamed[0]):
+                raise AssertionError(f"{name}: depth {depth} is not "
+                                     "bit-identical to depth 0")
+        check_ranked(name, streamed[0], want)
+        if name == "Q3r":  # float sums in another order than resident
+            check_same(name, streamed[0], resident)
+        elif _bits(streamed[0]) != _bits(resident):
+            raise AssertionError(f"{name}: streamed differs from resident")
+        st = rec["stats_depth2"]
+        if name == "R2" and st["ranked_skipped"] == 0:
+            raise AssertionError("R2: no partition was pruned by rank")
+        if name == "R1" and dev.type == "cuda":
+            # one call a visited partition, passes() launches a call
+            kk = kt.k_pow2_of(100)
+            visited = [p for p in pt.partitions if p.rows]
+            expect = sum(kt.passes(p.padded_rows, kk) for p in visited)
+            got = rec["streamed_launches_per_run"]["topk_kernel"]
+            if st["executed"] == len(visited) and got != expect:
+                raise AssertionError(f"R1: {got} topk launches, want {expect}")
+            if got < st["executed"]:
+                raise AssertionError("R1: a visited partition launched no "
+                                     "topk_kernel")
+        rec.update({
+            "visited": st["executed"], "zone_pruned": st["skipped"],
+            "ranked_pruned": st["ranked_skipped"],
+            "bytes_moved": sum(moved) // 5,
+            "cold_ms_depth0": stimes[0][0],
+            "warm_ms_depth0": stimes[0][1],
+            "warm_ms_depth1": stimes[1][0],
+            "warm_ms_depth2": statistics.median(stimes[2]),
+            "streamed_oracle": "ok", "depths_bit_identical": True,
+            "streamed_equals_resident": "bit-identical" if name != "Q3r"
+            else "keys and counts equal, sums within rtol 1e-4",
+        })
+        if profile_dir is not None:
+            with dispatch.overrides(prefetch_depth=2):
+                rec["profile_depth2"] = profile_run(
+                    f"streamed_{name}", build_ranked(
+                        name, pt, orders_table, query_cls=PartitionedQuery),
+                    profile_dir)
+        print(json.dumps(rec), flush=True)
+        per_query[name] = rec
+        del pt
         torch.cuda.empty_cache()
     return per_query
 
@@ -1000,7 +1327,8 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}", flush=True)
 
-    cases = kernel_edge_cases(dev) + packed_edge_cases(dev)
+    cases = (kernel_edge_cases(dev) + packed_edge_cases(dev)
+             + topk_edge_cases(dev))
     print(f"kernel checks: {cases} edge cases agree with the plain versions",
           flush=True)
 
@@ -1022,9 +1350,18 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the out-of-core "
                              f"path: {missing}")
+    _build.reset_launches()
+    ranked = ordering_phase(dev, shared, args.runs, args.profile)
+    ordering = dict(_build.LAUNCHES)
+    missing = [k for k in ORDER_KERNELS if ordering[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the ordering path: "
+                             f"{missing}")
     print(json.dumps({"launches": {"resident": resident,
-                                   "out_of_core": streamed}}), flush=True)
-    launches = {k: resident[k] + streamed[k] for k in _build.KERNELS}
+                                   "out_of_core": streamed,
+                                   "ordering": ordering}}), flush=True)
+    launches = {k: resident[k] + streamed[k] + ordering[k]
+                for k in _build.KERNELS}
     rows = kernel_timing(launches)
     _build.capture(False)
     print(json.dumps({"card": card, "queries": {
@@ -1035,7 +1372,12 @@ def main(argv=None) -> int:
             "h2d_bound_ms_packed": v["h2d_bound_ms_packed"],
             "bytes_moved_packed": v["bytes_moved_packed"],
             "bytes_moved_unpacked": v["bytes_moved_unpacked"]}
-        for k, v in ooc.items()}}), flush=True)
+        for k, v in ooc.items()}, "ordering": {
+        k: {"path": v["path"], "warm_median_ms": v["warm_median_ms"],
+            "warm_ms_depth0": v["warm_ms_depth0"],
+            "warm_ms_depth2": v["warm_ms_depth2"],
+            "visited": v["visited"], "ranked_pruned": v["ranked_pruned"]}
+        for k, v in ranked.items()}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Core library of the PyTorch port: SQL analytics on lightweight-compressed
 columnar data, mirroring ``repro.core`` (DESIGN.md §2, §4).
 
-Layers ported so far (the resident query path and the out-of-core
-streamed path):
+Layers ported so far (the resident query path, the out-of-core streamed
+path, and ordering on both):
   encodings   — Plain / RLE / Index / Plain+Index / RLE+Index columns & masks
   primitives  — Table-1 parallel primitives (range_intersect, idx_in_rle, ...)
   logical     — AND / OR / NOT over MaskColumns (Tables 2-5)
@@ -18,6 +18,9 @@ streamed path):
                 streamed partial aggregation (out-of-core, DESIGN.md §4)
   stream      — the depth-k prefetch pipeline (copy stream + events)
   faults      — fault taxonomy + deterministic injection (DESIGN.md §15)
+  order       — ORDER BY / TOP-K / LIMIT on compressed columns: bounded,
+                entry and row-level ranking, the distributed top-k merge
+                (DESIGN.md §10)
 """
 from repro_torch.core import (  # noqa: F401
     arithmetic,
@@ -27,6 +30,7 @@ from repro_torch.core import (  # noqa: F401
     groupby,
     join,
     logical,
+    order,
     partition,
     plan,
     primitives,
@@ -59,6 +63,7 @@ from repro_torch.core.faults import (  # noqa: F401
     TransientTransferError,
     ValidationError,
 )
+from repro_torch.core.order import RankedTable  # noqa: F401
 from repro_torch.core.partition import (  # noqa: F401
     PartitionedQuery,
     PartitionedTable,

@@ -34,8 +34,12 @@ What the reference's jit and donation become here, eagerly:
   * The base mask excluding pow2 padding rows is built on the device from
     the partition's real row count.
 
-The ranked (ORDER BY / TOP-K) terminal, ``_run_ranked`` with
-``order.rank_merged_groupby``, arrives with ROADMAP A10.
+Ranked terminals (ORDER BY / TOP-K, DESIGN.md §10): a row-terminal
+``order_by`` runs the distributed top-k merge (``_run_ranked``) over
+``stream.pipelined_ranked_fold``, visiting partitions best zone first and
+never transferring one whose ORDER-BY-key zone map cannot beat the
+current k-th best row (ranked zone-map pruning); ``groupby`` +
+``order_by`` ranks the host-merged groups (``order.rank_merged_groupby``).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import compress, groupby
+from repro_torch.core import order as order_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import stream
 from repro_torch.core import telemetry
@@ -63,6 +68,7 @@ from repro_torch.core.plan import (
     _FilterOp,
     _JoinOp,
     _MapOp,
+    _OrderByOp,
     _SemiJoinOp,
 )
 from repro_torch.core import table as table_mod
@@ -638,10 +644,12 @@ class PartitionedQuery(Query):
     prepared once per run and shared by every partition's program),
     streaming partial-aggregate execution.
 
-    The pipeline must terminate in ``aggregate`` or ``groupby`` (partials
-    of a bare filter are per-partition masks, which have no merge story —
-    count them instead). One program serves every partition;
-    ``trace_count`` is the number of programs built (one per query).
+    The pipeline must terminate in ``aggregate``, ``groupby`` or
+    ``order_by`` (partials of a bare filter are per-partition masks, which
+    have no merge story — count them instead). One program serves every
+    partition; ``trace_count`` is the number of programs built (one per
+    query). Ranked terminals run the distributed top-k merge with ranked
+    zone-map pruning (DESIGN.md §10).
     """
 
     def __init__(self, table: PartitionedTable):
@@ -651,6 +659,11 @@ class PartitionedQuery(Query):
         # (index, visit?, prune cause) per partition, from the last run's
         # zone-map pass (partition_match_verdict, DESIGN.md §14)
         self.last_verdicts: List[tuple] = []
+        # ranked zone-map pruning (DESIGN.md §10): once `limit` candidate
+        # rows are held, partitions whose ORDER-BY-key zone map cannot beat
+        # the current k-th best are never transferred. The off switch
+        # measures the transfer-count win.
+        self.ranked_pruning = True
         # serving hooks (core/serve.py, a later port slice): the server
         # swaps in a residency-LRU transfer and a cached program
         self._transfer_fn = None
@@ -672,6 +685,20 @@ class PartitionedQuery(Query):
             return self._transfer_fn(part)
         return _put_columns(part.table.columns, self.table.device,
                             self._copy_stream)
+
+    @contextlib.contextmanager
+    def _copy_stream_on(self, dev: torch.device):
+        """Scope of one run's CUDA copy stream (``_transfer`` issues the
+        partition copies on it); no stream on the CPU."""
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx:
+            self._copy_stream = (torch.cuda.Stream(dev)
+                                 if dev.type == "cuda" else None)
+            try:
+                yield
+            finally:
+                self._copy_stream = None
 
     def _make_executor(self, jit: bool):
         """The partition program (``jit`` is kept for signature parity:
@@ -736,6 +763,7 @@ class PartitionedQuery(Query):
             "partitions": st.get("partitions", 0),
             "executed": st.get("executed", 0),
             "pruned": st.get("skipped", 0),
+            "ranked_skipped": st.get("ranked_skipped", 0),
             "pruned_by": dict(st.get("pruned_by", {})),
             "transferred": st.get("transferred", 0),
             "transfers_seen": len(moved),
@@ -758,9 +786,11 @@ class PartitionedQuery(Query):
             f"(depth-{a['prefetch_depth']} pipeline, "
             f"{a['trace_count']} program"
             f"{'s' if a['trace_count'] != 1 else ''} built, qid={a['qid']})")
+        ranked = (f" + {a['ranked_skipped']} ranked-pruned"
+                  if a["ranked_skipped"] else "")
         lines.append(
             f"  partitions: {a['executed']} executed / {a['pruned']} "
-            f"zone-pruned of {a['partitions']}; "
+            f"zone-pruned{ranked} of {a['partitions']}; "
             f"{a['transferred']} transfers, {a['bytes_moved']} of "
             f"{a['bytes_total']} ingested bytes moved")
         for cause, n in sorted(a["pruned_by"].items()):
@@ -779,11 +809,12 @@ class PartitionedQuery(Query):
 
     def run(self, jit: bool = True):
         terminal = self.terminal_op()
-        if terminal is None:
+        oop = self.order_op()
+        if terminal is None and oop is None:
             raise NotImplementedError(
                 "partitioned execution requires a terminal aggregate() / "
-                "groupby() (add e.g. a count aggregate to materialize a "
-                "filter result)")
+                "groupby() / order_by() (add e.g. a count aggregate to "
+                "materialize a filter result)")
         # preparation FIRST: join prep records host_keys on each _JoinOp,
         # which partition_can_match's FK zone-map pushdown reads below
         key_sets = tuple(self._prepare_inputs())
@@ -830,6 +861,12 @@ class PartitionedQuery(Query):
                     t.record_stream(cur)
             return _to_host_after(execute(cols, key_sets, part.rows), dev)
 
+        if terminal is None:
+            # row-terminal ranked query: distributed top-k merge with
+            # ranked zone-map pruning and speculative prefetch
+            return self._run_ranked(oop, compute, todo, depth, stats,
+                                    label_of)
+
         partial_specs, _ = plan_mod.decompose_specs(terminal.specs)
         if isinstance(terminal, _AggOp):
             def fold(acc, part, partial):
@@ -842,11 +879,7 @@ class PartitionedQuery(Query):
                 return groupby.fold_groupby_partial(
                     acc, partial.value, group_names, partial_specs)
 
-        copy_ctx = (torch.cuda.device(dev) if dev.type == "cuda"
-                    else contextlib.nullcontext())
-        with copy_ctx:
-            self._copy_stream = (torch.cuda.Stream(dev)
-                                 if dev.type == "cuda" else None)
+        with self._copy_stream_on(dev):
             try:
                 acc = stream.pipelined_fold(todo, self._transfer, compute,
                                             fold, None, depth, stats,
@@ -856,9 +889,99 @@ class PartitionedQuery(Query):
                 # terminal errors still report the partial pipeline stats
                 # (stage ms, retries, degradations — DESIGN.md §15)
                 self.last_stats.update(stats.as_dict())
-                self._copy_stream = None
         if isinstance(terminal, _AggOp):
             return plan_mod.finalize_scalar_partials(
                 acc, terminal.specs, col_dtypes=ptable.col_dtypes)
-        return groupby.finalize_groupby_partials(acc, group_names,
-                                                 terminal.specs)
+        merged = groupby.finalize_groupby_partials(acc, group_names,
+                                                   terminal.specs)
+        if oop is not None:
+            # groupby + order_by: partials carry PARTIAL aggregates, so
+            # ranking can only happen after the host merge finalizes them
+            merged = order_mod.rank_merged_groupby(merged, oop.by,
+                                                   oop.descending, oop.limit)
+        return merged
+
+    # -- ranked (ORDER BY / TOP-K) execution --------------------------------
+
+    def _rebound(self, name: str) -> bool:
+        """Was ``name`` rebound by a map/join before the order op? (Its
+        ingest zone maps then no longer describe the pipeline values.)"""
+        for op in self.ops:
+            if isinstance(op, _MapOp) and op.out == name:
+                return True
+            if isinstance(op, _JoinOp) and name in op.out:
+                return True
+            if isinstance(op, _OrderByOp):
+                return False
+        return False
+
+    def _run_ranked(self, oop: _OrderByOp, compute, todo, depth: int,
+                    stats: stream.StreamStats, label_of=None):
+        ptable: PartitionedTable = self.table
+        key0, desc0 = oop.by[0], oop.descending[0]
+        prunable = (self.ranked_pruning and oop.limit is not None
+                    and not self._rebound(key0))
+
+        def zone_best(part):
+            """Best rank the partition could possibly hold on the primary
+            key (None = unknown: process early, never prune)."""
+            z = part.zone_hi if desc0 else part.zone_lo
+            if key0 not in z:
+                return None
+            return z[key0] if desc0 else -z[key0]
+
+        # visit best-first: a good bound forms after the first partition,
+        # maximizing later skips (unknown-zone partitions go first — they
+        # can never be skipped, so they might as well seed the bound)
+        items = sorted(todo, key=lambda p: (
+            0 if zone_best(p) is None else 1,
+            0 if zone_best(p) is None else -zone_best(p)))
+
+        def prune(state, part):
+            """True iff the CURRENT merged bound proves ``part`` cannot
+            contribute. Strictly-worse partitions only — a tie could still
+            win the ascending-row-id tiebreak. The bound tightens
+            monotonically, so a speculatively transferred partition is
+            re-checked (and its program gated) at the ring head: the
+            executed set is EXACTLY the depth-0 sequential path's."""
+            if not prunable:
+                return False
+            bound = order_mod.ranked_kth_bound(state, key0, desc0,
+                                               oop.limit)
+            if bound is None:
+                return False
+            zb = zone_best(part)
+            return zb is not None and zb < bound
+
+        def fold(state, part, partial):
+            # the host copy of the partial is complete (the ring waited on
+            # its event), so reading its count here does not stall the
+            # device
+            block = order_mod.host_block(partial.value,
+                                         row_offset=part.row_offset)
+            return order_mod.merge_ranked_partials(
+                state, block, oop.by, oop.descending, oop.limit)
+
+        with self._copy_stream_on(ptable.device):
+            try:
+                state, ranked_skipped, wasted = stream.pipelined_ranked_fold(
+                    items, self._transfer, compute, fold, prune, depth, stats,
+                    nbytes_of=Partition.nbytes, label_of=label_of)
+            finally:
+                # failed ranked runs still report partial pipeline stats
+                self.last_stats.update(stats.as_dict())
+        # coherent stats: partitions == executed + skipped + ranked_skipped;
+        # ``prefetch_wasted`` counts speculative transfers whose partition
+        # the tightened bound then pruned (bytes, never a result change)
+        self.last_stats["skipped"] = (self.last_stats["partitions"]
+                                      - stats.executed - ranked_skipped)
+        self.last_stats["ranked_skipped"] = ranked_skipped
+        self.last_stats["prefetch_wasted"] = wasted
+        if state is None:  # every partition pruned: empty ranked result
+            names = plan_mod._order_output_cols(self.ops, ptable) or ()
+            state = {"positions": np.zeros((0,), np.int64),
+                     "columns": {n: np.zeros(
+                         (0,), ptable.col_dtypes.get(n, np.float32))
+                         for n in names}}
+        return order_mod.ranked_table_from_state(
+            state, self._ranked_dictionaries())

@@ -14,8 +14,9 @@ Appendix D optimization rules implemented here:
   * semi-joins on RLE columns run before those on Plain columns,
   * for RLE group-by columns the filter mask is folded into alignment.
 
-Left for a later port slice: ``order_by`` (ROADMAP A10) raises
-``NotImplementedError``.
+A terminal ``order_by`` ranks the surviving rows (or, staged after a
+``groupby``, the group slots) through ``core/order.py``; ``run()`` then
+returns a host-side ``RankedTable``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import arithmetic, compress, groupby, join as join_mod
-from repro_torch.core import logical, telemetry
+from repro_torch.core import logical, order as order_mod, telemetry
 from repro_torch.core.encodings import (
     IndexColumn,
     IndexMask,
@@ -250,6 +251,23 @@ class _MapOp:
     fn: object  # columns dict -> column
 
 
+@dataclasses.dataclass
+class _OrderByOp:
+    """Terminal ranking: ORDER BY ``by`` (with per-key direction), keep the
+    first ``limit`` rows/groups (DESIGN.md §10).
+
+    As the pipeline's terminal over rows it ranks surviving rows and
+    gathers ``cols`` (default: every pipeline column) at the winners;
+    staged directly after a ``groupby`` it ranks the group slots by group
+    keys and/or aggregate outputs instead.
+    """
+
+    by: Tuple[str, ...]
+    descending: Tuple[bool, ...]
+    limit: Optional[int]
+    cols: Optional[Tuple[str, ...]] = None
+
+
 def _expr_str(expr) -> str:
     """Compact one-line rendering of a predicate tree (EXPLAIN output)."""
     if isinstance(expr, Pred):
@@ -315,6 +333,10 @@ def plan_signature(ops) -> tuple:
                         op.num_groups_cap))
         elif isinstance(op, _AggOp):
             sig.append(("agg", tuple(op.specs)))
+        elif isinstance(op, _OrderByOp):
+            sig.append(("order_by", tuple(op.by), tuple(op.descending),
+                        op.limit,
+                        tuple(op.cols) if op.cols is not None else None))
         else:
             raise TypeError(f"unknown op {type(op).__name__}")
     return tuple(sig)
@@ -429,9 +451,50 @@ class Query:
 
     def order_by(self, by, descending=False, limit: Optional[int] = None,
                  cols: Optional[Sequence[str]] = None) -> "Query":
-        raise NotImplementedError(
-            "order_by: ORDER BY / TOP-K is not ported yet (ROADMAP A10, "
-            "with the topk kernel, queue B8)")
+        """Stage a terminal ORDER BY / TOP-K / LIMIT (DESIGN.md §10).
+
+        ``by``: column name or sequence of names; ``descending``: bool or
+        per-key sequence. Over rows, the result is the first ``limit``
+        surviving rows in rank order with ``cols`` (default: all pipeline
+        columns) gathered at them — ``run()`` returns a host-side
+        ``RankedTable`` with dictionary codes decoded. Staged after
+        ``groupby``, ``by`` names group keys and/or aggregate outputs and
+        the group slots are ranked instead. Ties keep ascending row order
+        and NaN keys rank last, matching pandas
+        ``sort_values(kind="stable")``.
+        """
+        by = (by,) if isinstance(by, str) else tuple(by)
+        if not by:
+            raise ValueError("order_by: need at least one key")
+        if isinstance(descending, bool):
+            desc = (descending,) * len(by)
+        else:
+            desc = tuple(bool(d) for d in descending)
+        if len(desc) != len(by):
+            raise ValueError("order_by: descending must be a bool or match "
+                             f"the {len(by)} keys")
+        if limit is not None and int(limit) < 1:
+            raise ValueError("order_by: limit must be >= 1")
+        if any(isinstance(op, _OrderByOp) for op in self.ops):
+            raise ValueError("order_by: already staged")
+        if any(isinstance(op, _AggOp) for op in self.ops):
+            raise ValueError("order_by: cannot order a scalar aggregate")
+        gops = [op for op in self.ops if isinstance(op, _GroupByOp)]
+        if gops:
+            known = set(gops[-1].group) | {o for o, _, _ in gops[-1].specs}
+            missing = [b for b in by if b not in known]
+            if missing:
+                raise KeyError(
+                    f"order_by after groupby: {missing!r} neither group "
+                    "keys nor aggregate outputs")
+            if cols is not None:
+                raise ValueError("order_by after groupby: the output is the "
+                                 "ranked group table; cols= does not apply")
+        self.ops.append(_OrderByOp(
+            by=by, descending=desc,
+            limit=None if limit is None else int(limit),
+            cols=None if cols is None else tuple(cols)))
+        return self
 
     # -- execution ----------------------------------------------------------
 
@@ -459,10 +522,15 @@ class Query:
         """
         self._reorder_semijoins()
         ops = list(self.ops)
+        for i, op in enumerate(ops):
+            if isinstance(op, _OrderByOp) and i != len(ops) - 1:
+                raise ValueError("order_by must be the pipeline's last op")
         if partial:
             ops = [_decompose_op(op) for op in ops]
         table = self.table
         key_domains = _groupby_key_domains(ops, table)
+        order_domains = _order_key_domains(ops, table)
+        order_cols = _order_output_cols(ops, table)
         walk = _SchemaView(table)
         filter_schemas = {}
         for i, op in enumerate(ops):
@@ -495,9 +563,30 @@ class Query:
                 elif isinstance(op, _GroupByOp):
                     needed = set(op.group) | {c for _, _, c in op.specs if c}
                     sub = {k: env[k] for k in needed}
-                    return groupby.groupby_aggregate(
+                    res = groupby.groupby_aggregate(
                         sub, op.group, op.specs, op.num_groups_cap, mask=mask,
                         key_domains=key_domains)
+                    nxt = ops[i + 1] if i + 1 < len(ops) else None
+                    if isinstance(nxt, _OrderByOp) and not partial:
+                        # rank the group slots; under partial (partitioned)
+                        # execution ranking happens AFTER the host merge —
+                        # per-partition partial aggregates have no rank yet
+                        res = order_mod.rank_groupby(res, nxt.by,
+                                                     nxt.descending, nxt.limit)
+                    return res
+                elif isinstance(op, _OrderByOp):
+                    # terminal ranked query over rows: rank, then gather
+                    # the output columns at the k winners only
+                    nrows_here = next(iter(env.values())).nrows
+                    limit = op.limit if op.limit is not None else nrows_here
+                    positions, n = order_mod.top_k_rows(
+                        {b: env[b] for b in op.by}, op.by, op.descending,
+                        limit, mask=mask, key_domains=order_domains)
+                    gathered = {name: order_mod.gather_at(env[name],
+                                                          positions, n)
+                                for name in order_cols}
+                    return order_mod.OrderedRows(positions=positions, n=n,
+                                                 columns=gathered)
                 elif isinstance(op, _AggOp):
                     needed = {c for _, _, c in op.specs if c}
                     out = {}
@@ -529,6 +618,13 @@ class Query:
                 return op
         return None
 
+    def order_op(self):
+        """The staged _OrderByOp, or None."""
+        for op in self.ops:
+            if isinstance(op, _OrderByOp):
+                return op
+        return None
+
     # -- observability: EXPLAIN ---------------------------------------------
 
     def _group_path(self, op: "_GroupByOp") -> str:
@@ -547,6 +643,27 @@ class Query:
             return (f"argsort grouping (key domain {prod} > "
                     f"sort_free_max_domain={pol.sort_free_max_domain})")
         return f"sort-free scatter (key domain {prod})"
+
+    def _order_path(self, oop: "_OrderByOp") -> str:
+        """The ranking path the policy + encodings select (mirrors
+        order.top_k_rows's entry/bounded gates)."""
+        pol = dispatch.policy()
+        if any(isinstance(o, _GroupByOp) for o in self.ops):
+            return "rank group slots after merge"
+        if not pol.enable_entry_order:
+            return "row-level top-k (entry ordering disabled)"
+        walk = _SchemaView(self.table, self.ops)
+        encs = [walk.encoding_of(b) for b in oop.by]
+        if not all(("RLE" in e or "Index" in e) for e in encs):
+            return "row-level top-k (keys not entry-encoded)"
+        doms = _order_key_domains(self.ops, self.table)
+        if doms is not None and all(b in doms for b in oop.by):
+            prod = 1
+            for b in oop.by:
+                prod *= int(doms[b][1])
+            if prod <= pol.sort_free_max_domain:
+                return f"bounded-histogram rank (key domain {prod})"
+        return "entry-granularity sort"
 
     def _explain_lines(self) -> List[str]:
         """One line per staged op: the op, the referenced columns' stored
@@ -590,6 +707,11 @@ class Query:
                 tail = f"; {enc(cols)}" if any(cols) else ""
                 lines.append(f"{pad}aggregate {_agg_str(op.specs)}"
                              f"  [path: fused single-pass reduction{tail}]")
+            elif isinstance(op, _OrderByOp):
+                lines.append(f"{pad}order_by[{', '.join(op.by)}] "
+                             f"limit={op.limit}"
+                             f"  [path: {self._order_path(op)}; "
+                             f"{enc(list(op.by))}]")
             walk.observe(op)
             pad += "  "
         return lines
@@ -618,13 +740,35 @@ class Query:
                      "the resident table")
         return "\n".join(lines)
 
+    def _ranked_dictionaries(self) -> Dict[str, np.ndarray]:
+        """name -> dictionary for decoding a ranked result's columns: base
+        columns use the (fact) table's dictionaries; join-gathered columns
+        the DIMENSION's; map outputs none."""
+        dicts = dict(getattr(self.table, "dictionaries", None) or {})
+        for op in self.ops:
+            if isinstance(op, _JoinOp):
+                for out, c in zip(op.out, op.cols):
+                    dicts.pop(out, None)
+                    d = (getattr(op.dim, "dictionaries", None) or {}).get(c)
+                    if d is not None:
+                        dicts[out] = d
+            elif isinstance(op, _MapOp):
+                dicts.pop(op.out, None)
+        return dicts
+
     def run(self, jit: bool = True):
         """Execute: eager key-set/dimension preparation + the fact pipeline.
 
         ``jit`` is kept for signature parity with the reference; the port
-        runs eagerly either way (no trace, no compile cache)."""
+        runs eagerly either way (no trace, no compile cache). A
+        row-terminal ``order_by`` finalizes host-side into a
+        ``RankedTable`` (exact-size arrays, dictionary codes decoded)."""
         key_sets = tuple(self._prepare_inputs())
-        return self.build()(self.table.columns, key_sets)
+        out = self.build()(self.table.columns, key_sets)
+        if isinstance(out, order_mod.OrderedRows):
+            return order_mod.ranked_table_from_state(
+                order_mod.host_block(out), self._ranked_dictionaries())
+        return out
 
     def _prepare_inputs(self):
         """Eager host-side preparation, one entry per semi-join / join op in
@@ -746,6 +890,41 @@ def _groupby_key_domains(ops, table):
         return None
     doms = {g: live[g] for g in op.group if g in live}
     return doms or None
+
+
+def _order_key_domains(ops, table):
+    """Bounded-domain metadata for a row-terminal order_by's keys — the
+    histogram-rank path's contract (order.top_k_rows), with the same
+    pipeline-order invalidation as the group-by domains."""
+    op, live = _live_domains_at(ops, table, _OrderByOp)
+    if op is None or any(isinstance(o, _GroupByOp) for o in ops):
+        return None
+    doms = {b: live[b] for b in op.by if b in live}
+    return doms or None
+
+
+def _table_column_names(table) -> Tuple[str, ...]:
+    cols = getattr(table, "columns", None)
+    if cols is not None:
+        return tuple(cols)
+    return tuple(getattr(table, "col_dtypes", {}))  # PartitionedTable
+
+
+def _order_output_cols(ops, table):
+    """Output column set of a row-terminal order_by: the staged ``cols``
+    or every name live in the pipeline at that point."""
+    oop = next((op for op in ops if isinstance(op, _OrderByOp)), None)
+    if oop is None or any(isinstance(op, _GroupByOp) for op in ops):
+        return None
+    if oop.cols is not None:
+        return tuple(dict.fromkeys(oop.cols + oop.by))
+    names = list(_table_column_names(table))
+    for op in ops:
+        if isinstance(op, _JoinOp):
+            names.extend(n for n in op.out if n not in names)
+        elif isinstance(op, _MapOp) and op.out not in names:
+            names.append(op.out)
+    return tuple(names)
 
 
 # ----------------------- partial-aggregate decomposition -------------------

@@ -29,7 +29,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("bucketize.cu", "rle_decode.cu", "segment_reduce.cu", "unpack.cu")
+SOURCES = ("bucketize.cu", "rle_decode.cu", "segment_reduce.cu", "unpack.cu",
+           "topk.cu")
 HEADERS = ("bisect.cuh",)  # included by bucketize.cu and unpack.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,7 +38,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 
 KERNELS = ("bucketize_kernel", "bucketize_count_kernel", "rle_decode_kernel",
            "segment_sum_kernel", "unpack_kernel", "bucketize_packed_kernel",
-           "rle_decode_packed_kernel")
+           "rle_decode_packed_kernel", "topk_kernel")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 LARGEST: Dict[str, dict] = {}
 BUILD_INFO: Dict[str, object] = {}

@@ -23,10 +23,11 @@ Differences from ``repro.kernels.dispatch``:
     means "the input tensors are on CUDA". Forced on, a CPU call still
     reaches the kernel wrapper, which runs its plain version for CPU
     tensors — that is how the CPU tests exercise the kernel route.
-  * ``bucketize_min_queries``, ``rle_decode_min_rows`` and
-    ``unpack_min_vals`` keep their fields and knobs, but default to 0: the
-    reference's values were tuned on a TPU, and until an H100 measurement
-    says otherwise every eligible call on the card launches a kernel.
+  * ``bucketize_min_queries``, ``rle_decode_min_rows``,
+    ``unpack_min_vals`` and ``topk_min_rows`` keep their fields and knobs,
+    but default to 0: the reference's values were tuned on a TPU, and
+    until an H100 measurement says otherwise every eligible call on the
+    card launches a kernel.
   * ``bucketize_max_vmem_boundaries`` keeps its name and knob; its default
     means "fits one block's shared memory" (``MAX_SMEM_BOUNDARIES``).
     Longer boundary lists take ``bucketize_count_kernel`` (bisection
@@ -39,8 +40,10 @@ Differences from ``repro.kernels.dispatch``:
     fused kernels of ``kernels/unpack.py``. The reference's
     ``MAX_VMEM_WORDS`` ceiling (2M words, a TPU VMEM budget) is gone: the
     H100 kernels read the words through L2.
-  * ``topk`` raises ``NotImplementedError`` until its kernel is ported
-    (ROADMAP queue B8).
+  * ``topk`` takes ``topk_kernel`` (``kernels/topk.py``) for int32 /
+    float32 keys and ``1 <= k <= min(topk_max_k, MAX_KERNEL_K)``; other
+    calls take the plain stable sort (``ref.topk``), where the reference
+    takes ``lax.top_k``. Both order ties by the lowest index.
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ from repro_torch.kernels.bucketize import (
 )
 from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import MAX_SEGMENTS, segment_sum_kernel
+from repro_torch.kernels.topk import MAX_KERNEL_K, topk_kernel
 from repro_torch.kernels.unpack import (
     bucketize_packed_kernel,
     rle_decode_packed_kernel,
@@ -69,7 +73,6 @@ from repro_torch.kernels.unpack import (
 _KERNEL_DTYPES = (torch.int32, torch.float32)
 
 MAX_MATMUL_SEGMENTS = MAX_SEGMENTS  # the reference's name for the G bound
-MAX_KERNEL_K = 256  # top-k kernel bound (repro.kernels.topk.MAX_KERNEL_K)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +94,9 @@ class DispatchPolicy:
     # ingest-recorded domain metadata and the product domain fits.
     enable_sort_free: bool = True
     sort_free_max_domain: int = 1 << 20
-    # top-k / entry ordering (order.py, a later port slice)
-    topk_min_rows: int = 4096
+    # top-k / entry ordering (core/order.py): below topk_min_rows rows the
+    # plain stable sort is used.
+    topk_min_rows: int = 0
     topk_max_k: int = MAX_KERNEL_K
     enable_entry_order: bool = True
     # bit packing (DESIGN.md §11)
@@ -371,8 +375,27 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     return ref_mod.ref_segment_reduce(values, segment_ids, num_segments)
 
 
-def topk(values, k: int):
-    """Top-k arrives with the ordering slice."""
-    raise NotImplementedError(
-        "topk: ORDER BY / top-k is not ported yet (ROADMAP A10 and queue B8, "
-        "the topk kernel)")
+def topk(values: torch.Tensor, k: int):
+    """Top-k (descending) of a 1-D rank-key tensor: ``(vals[k], idx[k])``.
+
+    Ties resolve to the lowest index on both routes (pandas-stable
+    descending order); ascending callers flip the rank key (order.py).
+    ``topk_kernel`` when the policy allows and (rows, k) clear the
+    thresholds, else the plain stable sort ``ref.topk``."""
+    pol = policy()
+    rows = values.shape[0]
+    on = pol.kernels_enabled(values)
+    k_max = min(pol.topk_max_k, MAX_KERNEL_K)
+    if (on and rows >= pol.topk_min_rows and 1 <= k <= k_max
+            and _kernel_ok(values)):
+        _route("topk", "kernel",
+               f"rows={rows}>=topk_min_rows={pol.topk_min_rows}, "
+               f"k={k}<=topk_max_k={k_max}")
+        return topk_kernel(values.contiguous(), k)
+    _route("topk", "torch",
+           _off_reason(pol) if not on
+           else f"rows={rows}<topk_min_rows={pol.topk_min_rows}"
+           if rows < pol.topk_min_rows
+           else f"k={k} outside kernel range" if not 1 <= k <= k_max
+           else f"dtype {values.dtype} not routed")
+    return ref_mod.topk(values, k)

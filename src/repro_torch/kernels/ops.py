@@ -24,6 +24,7 @@ from repro_torch.kernels.bucketize import (
 )
 from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import MAX_SEGMENTS, segment_sum_kernel
+from repro_torch.kernels.topk import topk_kernel
 from repro_torch.kernels.unpack import unpack_kernel
 
 
@@ -79,3 +80,13 @@ def unpack(words, bit_width: int, offset, nvals: int, use_kernel: bool = False,
     if not use_kernel or nvals == 0:
         return ref.ref_unpack(w, bit_width, offset, nvals)
     return unpack_kernel(w.contiguous(), bit_width, offset, nvals)
+
+
+def topk(values, k: int, use_kernel: bool = False, device=None):
+    """Top-k (descending) of a 1-D int32/float32 array: ``(vals[k],
+    int32 idx[k])``, ties to the lowest index."""
+    v = as_tensor(values, device if not isinstance(values, torch.Tensor)
+                  else None)
+    if not use_kernel:
+        return ref.topk(v, k)
+    return topk_kernel(v.contiguous(), k)

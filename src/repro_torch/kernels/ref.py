@@ -131,3 +131,31 @@ def ref_rle_decode_packed(words: torch.Tensor, bit_width: int, offset,
     """``rle_decode`` whose ``cap`` run values are packed in ``words``."""
     values = ref_unpack(words, bit_width, offset, cap)
     return ref_rle_decode(values, starts, ends, n, nrows, fill)
+
+
+def worst_value(dtype: torch.dtype):
+    """The rank a top-k pad slot carries: INT32_MIN or -inf."""
+    if dtype.is_floating_point:
+        return float("-inf")
+    return torch.iinfo(dtype).min
+
+
+def topk(values: torch.Tensor, k: int):
+    """Top-k (descending) of a 1-D int32/float32 tensor: ``(vals[k],
+    int32 idx[k])``, equal values at the lowest index first (the order of
+    ``jax.lax.top_k`` and of ``repro.kernels.topk.topk_kernel``).
+
+    A stable descending sort, not ``torch.topk``, whose tie order is not
+    documented. Fewer than ``k`` values are padded, as the reference kernel
+    pads its tile: pad slots carry the dtype's worst value and the indices
+    past the end, so a real row holding that worst value still ranks
+    first. Floats compare as numbers: -0.0 ties +0.0 (the sort key adds
+    0.0, which maps -0.0 to +0.0 on every device's sort)."""
+    n = values.shape[0]
+    if n < k:
+        pad = torch.full((k - n,), worst_value(values.dtype),
+                         dtype=values.dtype, device=values.device)
+        values = torch.cat([values, pad])
+    key = values + 0.0 if values.dtype.is_floating_point else values
+    order = torch.sort(key, descending=True, stable=True).indices[:k]
+    return values[order], order.to(torch.int32)

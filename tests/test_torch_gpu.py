@@ -10,9 +10,13 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (integer outputs and rle_decode exactly; segment_sum within the
 reference tests' rtol 1e-4 of a float64 host sum and bit-identical
 across launches; the three packed kernels exactly, on every bit width),
-the TPC-H-shaped queries of ``chip_smoke.py`` are held against the same
-queries on CPU tensors and the numpy oracle, and the streamed partitioned
-path (pinned partitions, copy stream, events) against its CPU run.
+topk exactly, values and indices, bit-identical across launches and over
+several survivor passes), the stable argsorts of the ordering layer on
+CUDA against the CPU's and a numpy oracle (NaN last, ties in row order),
+the TPC-H-shaped queries and the ranked queries of ``chip_smoke.py`` are
+held against the same queries on CPU tensors and the numpy oracle, and
+the streamed partitioned path (pinned partitions, copy stream, events)
+against its CPU run.
 """
 import numpy as np
 import pytest
@@ -27,8 +31,8 @@ from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 from repro_torch.kernels import unpack as ku
 
-from torch_twins import (BUCKETIZE_CASES, RLE_CASES, bucketize_cases,  # noqa: F401
-                         cuda_device, rle_case)
+from torch_twins import (BUCKETIZE_CASES, RLE_CASES, TOPK_CASES,  # noqa: F401
+                         bucketize_cases, cuda_device, rle_case, topk_case)
 
 
 def _t(a, dev):
@@ -216,3 +220,119 @@ def test_gpu_streamed_partitions_match_cpu(cuda_device, name):
     chip_smoke.check_answer(name, gpu, chip_smoke.oracle(
         name, data, orders=orders, part_keys=part_keys))
     chip_smoke.check_same(name, gpu, runs[("cpu", 0)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_gpu_topk_kernel_matches_plain(cuda_device, case):
+    """topk_kernel equals ref.topk on the card and on the CPU, values and
+    indices, at every k of chip_smoke.py's list; two launches give the
+    same bits."""
+    from repro_torch.kernels import topk as kt
+    x, _ = topk_case(case)
+    xx = _t(x, cuda_device)
+    for k in (1, 8, 37, 128, 256):
+        got, again = kt.topk_kernel(xx, k), kt.topk_kernel(xx, k)
+        want = ref.topk(xx, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[1].dtype == torch.int32 and got[0].shape == (k,)
+        assert torch.equal(got[0].view(torch.int32), again[0].view(torch.int32))
+        assert torch.equal(got[1], again[1])
+        cv, ci = ref.topk(torch.from_numpy(np.ascontiguousarray(x)), k)
+        assert torch.equal(got[0].cpu(), cv) and torch.equal(got[1].cpu(), ci)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(1_000_003, 100), (3_000_000, 256)])
+def test_gpu_topk_kernel_multi_pass(cuda_device, n, k):
+    """Inputs of three and more survivor passes: one launch a pass, and
+    the stable sort's answer."""
+    from repro_torch.kernels import topk as kt
+    rng = np.random.default_rng(n)
+    x = rng.integers(-100, 100, n).astype(np.int32)
+    x[rng.random(n) < 0.2] = np.iinfo(np.int32).min
+    xx = _t(x, cuda_device)
+    before = _build.LAUNCHES["topk_kernel"]
+    v, i = kt.topk_kernel(xx, k)
+    assert _build.LAUNCHES["topk_kernel"] - before == kt.passes(n, k) >= 3
+    wv, wi = ref.topk(xx, k)
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+    order = np.lexsort((np.arange(n), -x.astype(np.int64)))[:k]
+    np.testing.assert_array_equal(i.cpu().numpy(), order)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [50, 100_000])
+def test_gpu_stable_argsort_nan_last(cuda_device, n):
+    """The ordering layer's stable argsorts on CUDA (small and large
+    inputs take different sorts there) give the CPU's permutation and a
+    numpy oracle's: NaN last in both directions, -0.0 tying +0.0, ties in
+    ascending row order; the dense rank keys agree bit for bit."""
+    from repro_torch.core import order
+    rng = np.random.default_rng(n)
+    f = rng.choice([1.5, -2.0, 0.0, -0.0, np.inf, -np.inf, np.nan, 3.0],
+                   n).astype(np.float32)
+    i = rng.integers(0, 5, n).astype(np.int32)
+    live = rng.random(n) < 0.9
+    rows = np.arange(n)
+    for vals in (f, i):
+        for desc in (False, True):
+            perms = [order._argsort_key_nan_last(
+                torch.arange(n, device=dev), _t(vals, dev), desc).cpu().numpy()
+                for dev in ("cpu", cuda_device)]
+            key = vals.astype(np.float64) + 0.0
+            key = np.where(np.isnan(key), 0.0, -key if desc else key)
+            want = np.lexsort((rows, key, np.isnan(vals.astype(np.float64))))
+            np.testing.assert_array_equal(perms[0], want)
+            np.testing.assert_array_equal(perms[1], want)
+            keys = [order.dense_rank_key(_t(vals, dev), _t(live, dev),
+                                         desc).cpu()
+                    for dev in ("cpu", cuda_device)]
+            assert torch.equal(keys[0], keys[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["R1", "R2", "Q3r"])
+def test_gpu_ranked_queries_match_cpu_and_oracle(cuda_device, name):
+    """chip_smoke.py's ranked queries on CUDA tensors give the CPU route's
+    answer and the oracle's, resident and streamed over packed pinned
+    partitions at depth 0/1/2; R1 launches topk_kernel."""
+    from repro_torch.core.partition import PartitionedQuery, PartitionedTable
+    from repro_torch.kernels import dispatch
+    n = 200_000
+    rng = np.random.default_rng(2)
+    orders = chip_smoke.make_orders(rng, n // 4)
+    src = chip_smoke.RANKED_SOURCE[name]
+    data = chip_smoke.make_lineitem(rng, n, order=chip_smoke.SORT_ORDERS[src])
+    cfg = compress.CompressionConfig(plain_threshold=1_000)
+    want = chip_smoke.ranked_oracle(
+        name, data, chip_smoke.oracle("Q3", data, orders=orders)
+        if name == "Q3r" else None)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        t = Table.from_arrays(data, cfg=cfg, device=dev)
+        ot = Table.from_arrays(orders, cfg=cfg, device=dev)
+        before = _build.LAUNCHES["topk_kernel"]
+        runs[(str(dev), "resident")] = [chip_smoke.host_result(
+            chip_smoke.build_ranked(name, t, ot).run()) for _ in range(2)]
+        launched = _build.LAUNCHES["topk_kernel"] - before
+        assert (launched > 0) == (dev != "cpu" and name == "R1")
+        pt = PartitionedTable.from_arrays(data, cfg=cfg, partition_rows=1 << 16,
+                                          pack=True, device=dev)
+        for depth in (0, 1, 2):
+            with dispatch.overrides(prefetch_depth=depth):
+                q = chip_smoke.build_ranked(name, pt, ot,
+                                            query_cls=PartitionedQuery)
+                runs[(str(dev), depth)] = chip_smoke.host_result(q.run())
+    gpu = runs[(str(cuda_device), "resident")]
+    assert chip_smoke._bits(gpu[0]) == chip_smoke._bits(gpu[1])
+    chip_smoke.check_ranked(name, gpu[0], want)
+    chip_smoke.check_ranked(name, runs[("cpu", "resident")][0], want)
+    streamed = runs[(str(cuda_device), 0)]
+    chip_smoke.check_ranked(name, streamed, want)
+    for depth in (1, 2):
+        assert chip_smoke._bits(runs[(str(cuda_device), depth)]) == \
+            chip_smoke._bits(streamed)
+    if name != "Q3r":
+        assert chip_smoke._bits(streamed) == chip_smoke._bits(gpu[0])
+        assert chip_smoke._bits(runs[("cpu", 0)]) == chip_smoke._bits(gpu[0])

@@ -19,8 +19,9 @@ from repro_torch.kernels import bucketize as kb
 from repro_torch.kernels.rle_decode import fill_bits, rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 
-from torch_twins import (BUCKETIZE_CASES, RLE_CASES, assert_close,
-                         assert_same, bucketize_cases, rle_case)
+from torch_twins import (BUCKETIZE_CASES, RLE_CASES, TOPK_CASES, I32MIN,
+                         assert_close, assert_same, bucketize_cases, rle_case,
+                         topk_case)
 
 
 def _t(a):
@@ -252,12 +253,12 @@ def test_policy_from_env_parsing():
     # TPU-tuned thresholds default to 0 on the card; the shared-memory
     # bound replaces the VMEM one
     assert (auto.bucketize_min_queries, auto.rle_decode_min_rows,
-            auto.unpack_min_vals) == (0, 0, 0)
+            auto.unpack_min_vals, auto.topk_min_rows) == (0, 0, 0, 0)
     assert auto.bucketize_max_vmem_boundaries == kb.MAX_SMEM_BOUNDARIES
     # the fields the JAX policy shares keep their defaults
     jauto = jdispatch.policy_from_env({})
     for f in ("segment_sum_max_groups", "sort_free_max_domain",
-              "topk_min_rows", "topk_max_k", "pack_max_bits",
+              "topk_max_k", "pack_max_bits",
               "prefetch_depth", "plan_cache_size", "serve_max_batch",
               "trace_buffer_events", "transfer_retries"):
         assert getattr(auto, f) == getattr(jauto, f), f
@@ -292,11 +293,135 @@ def test_dispatch_routes_are_recorded(rng, forced, path):
 
 
 def test_unported_routes_raise():
-    """Only top-k is left (B8); the packed routes (B5-B7) are ported."""
-    with pytest.raises(NotImplementedError, match="B8"):
-        dispatch.topk(torch.zeros(4), 2)
+    """The routes that raised before their kernels were ported now run:
+    top-k (B8) and the packed routes (B5-B7)."""
+    v, i = dispatch.topk(torch.tensor([3, 9, 9, 1], dtype=torch.int32), 2)
+    assert v.tolist() == [9, 9] and i.tolist() == [1, 2]
+    with dispatch.overrides(use_kernels=True):
+        v, i = dispatch.topk(torch.tensor([3.0, 9.0, 9.0, 1.0]), 3)
+    assert v.tolist() == [9.0, 9.0, 3.0] and i.tolist() == [1, 2, 0]
     from repro_torch.core.encodings import PackedColumn
     words = torch.tensor([0b1110_0100], dtype=torch.int32)  # 0,1,2,3 at 2 bits
     got = dispatch.unpack(PackedColumn(words=words, nrows=4, bit_width=2,
                                        offset=-1))
     assert got.tolist() == [-1, 0, 1, 2]
+
+
+# ---------------------------------------------------------------------------
+# topk: the plain version and the forced-kernel CPU route against the
+# Pallas kernel (interpret mode) and jax.lax.top_k
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_topk_plain_matches_pallas(case):
+    import jax
+    from repro.kernels import topk as jtopk
+    x, ks = topk_case(case)
+    for k in ks:
+        want = jtopk.topk_kernel(jnp.asarray(x), k, interpret=True)
+        got = {"ref": ref.topk(_t(x), k),
+               "ops kernel route": ops.topk(_t(x), k, use_kernel=True)}
+        with dispatch.overrides(use_kernels=True):
+            got["dispatch kernel route"] = dispatch.topk(_t(x), k)
+        for how, (v, i) in got.items():
+            assert_same(want[0], v, f"{case} k={k} {how} values")
+            assert_same(want[1], i, f"{case} k={k} {how} indices")
+        # lax.top_k (the reference's other route) takes k <= n only, and
+        # orders -0.0 below +0.0 where the Pallas kernel ties them
+        if len(x) >= k and case != "signed_zeros_float32":
+            lv, li = jax.lax.top_k(jnp.asarray(x), k)
+            assert_same(lv, got["ref"][0], f"{case} k={k} lax values")
+            assert_same(li, got["ref"][1], f"{case} k={k} lax indices")
+
+
+def _emulate_topk_kernel(values: torch.Tensor, k: int):
+    """The CUDA kernel's algorithm in plain PyTorch: each 2048-pair tile
+    (pads: worst value, index = position on the first pass, INT32_MAX on
+    survivor passes) sorted by (value desc, index asc), its top k_pow2
+    kept; relaunched on the survivors until one tile is left."""
+    from repro_torch.kernels import topk as kt
+    kp = kt.k_pow2_of(k)
+    vals, idx, first, launches = values, None, True, 0
+    while True:
+        m = vals.shape[0]
+        tiles = max(1, -(-m // kt.TILE))
+        pad = tiles * kt.TILE - m
+        pv = torch.cat([vals, torch.full((pad,), ref.worst_value(vals.dtype),
+                                         dtype=vals.dtype)])
+        base = torch.arange(tiles * kt.TILE, dtype=torch.int64)
+        if first:
+            pi = base
+        else:
+            pi = torch.cat([idx.to(torch.int64),
+                            torch.full((pad,), np.iinfo(np.int32).max,
+                                       dtype=torch.int64)])
+        out_v, out_i = [], []
+        for t in range(tiles):
+            tv = pv[t * kt.TILE:(t + 1) * kt.TILE]
+            ti = pi[t * kt.TILE:(t + 1) * kt.TILE]
+            order = np.lexsort((ti.numpy(), -tv.numpy().astype(np.float64)))
+            out_v.append(tv[order[:kp]])
+            out_i.append(ti[order[:kp]])
+        vals, idx = torch.cat(out_v), torch.cat(out_i).to(torch.int32)
+        first, launches = False, launches + 1
+        if tiles == 1:
+            return vals[:k], idx[:k], launches
+
+
+@pytest.mark.parametrize("n,k", [(0, 3), (5, 8), (2049, 256), (9000, 100),
+                                 (600_000, 256)])
+def test_topk_survivor_passes_emulated(n, k):
+    """The relaunch design (survivors carry their source indices; pads
+    lose to real rows holding the worst value) equals the stable sort,
+    and the launch count is ``topk.passes``."""
+    from repro_torch.kernels import topk as kt
+    rng = np.random.default_rng(n)
+    x = rng.integers(-3, 3, n).astype(np.int32)
+    x[rng.random(n) < 0.3] = I32MIN
+    v, i, launches = _emulate_topk_kernel(_t(x), k)
+    want_v, want_i = ref.topk(_t(x), k)
+    assert torch.equal(v, want_v) and torch.equal(i, want_i)
+    assert launches == kt.passes(n, k)
+    assert kt.passes(59_986_052, 100) == 5  # R1's shape in chip_smoke.py
+    assert kt.passes(1 << 23, 128) == 4  # one streamed partition
+
+
+@pytest.mark.parametrize("bad", ["k_zero", "k_beyond", "dtype", "two_d",
+                                 "strided"])
+def test_topk_wrapper_rejects_bad_inputs(bad):
+    from repro_torch.kernels.topk import topk_kernel
+    x = torch.arange(100, dtype=torch.int32)
+    k = 5
+    if bad == "k_zero":
+        k = 0
+    elif bad == "k_beyond":
+        k = 300  # k_pow2 = 512 > MAX_KERNEL_K, as in the reference
+    elif bad == "dtype":
+        x = x.to(torch.int64)
+    elif bad == "two_d":
+        x = x.reshape(10, 10)
+    else:
+        x = x[::2]
+    with pytest.raises((TypeError, ValueError)):
+        topk_kernel(x, k)
+
+
+def test_topk_routes_by_k_and_rows():
+    """Kernel route for 1 <= k <= min(topk_max_k, 256) at rows >=
+    topk_min_rows, the plain route otherwise; both give the same answer
+    (the reference's test_orderby.py routing case)."""
+    x = _t(np.random.default_rng(3).integers(0, 97, 5000).astype(np.int32))
+    want = ref.topk(x, 300)
+    ttelemetry.reset()
+    with dispatch.overrides(use_kernels=True, enable_trace=True):
+        dispatch.topk(x, 16)
+        with dispatch.overrides(topk_max_k=8):
+            dispatch.topk(x, 16)
+        got = dispatch.topk(x, 300)  # k beyond the kernel's limit
+        with dispatch.overrides(topk_min_rows=10_000):
+            dispatch.topk(x, 16)
+    reg = ttelemetry.registry()
+    assert reg.counter("route.topk.kernel") == 1
+    assert reg.counter("route.topk.torch") == 3
+    ttelemetry.reset()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

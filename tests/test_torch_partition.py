@@ -269,8 +269,9 @@ def test_requires_terminal_aggregate_and_order_by_waits():
     _, t = _twins({"a": np.arange(100, dtype=np.int32)}, num_partitions=2)
     with pytest.raises(NotImplementedError):
         TP.PartitionedQuery(t).filter(col("a") > 3).run()
-    with pytest.raises(NotImplementedError, match="A10"):
-        TP.PartitionedQuery(t).order_by("a", limit=3)
+    # order_by is a terminal of its own (A10): the ranked merge runs
+    r = TP.PartitionedQuery(t).order_by("a", limit=3).run()
+    assert r.n == 3 and r.positions.tolist() == [0, 1, 2]
 
 
 # ---------------------------------------------------------------------------

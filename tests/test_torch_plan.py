@@ -160,9 +160,12 @@ def test_partial_build_decomposes_aggregates(tpch):
 
 
 def test_unported_query_features_raise(tpch):
+    """The query features left out of slice 1 now run: order_by (A10) and
+    explain_analyze."""
     tt = TTable.from_arrays({"a": np.arange(10, dtype=np.int32)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TQuery(tt).order_by("a", limit=3)
+    r = TQuery(tt).order_by("a", descending=True, limit=3).run()
+    assert r.n == 3 and r.positions.tolist() == [9, 8, 7]
+    assert r.columns["a"].tolist() == [9, 8, 7]
     # explain_analyze arrived with the out-of-core slice
     q = TQuery(tt).aggregate({"c": ("count", None)})
     assert "actual: wall" in q.explain_analyze()
@@ -242,3 +245,17 @@ def test_quickstart_query3_pk_fk_gather(sales, route):
                                   payload[d["store"]])
     from torch_twins import assert_same_encoded
     assert_same_encoded(want, got)
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_chip_smoke_lineitem_matches_bench_generator(query):
+    """chip_smoke.py sorts LINEITEM by one stable argsort of a composite
+    key (on the card in its runs): the same arrays as bench_tpch's
+    np.lexsort, from the same seed."""
+    want = B.make_lineitem(np.random.default_rng(5), 30_000,
+                           order=B.SORT_ORDERS[query])
+    got = chip_smoke.make_lineitem(np.random.default_rng(5), 30_000,
+                                   order=chip_smoke.SORT_ORDERS[query])
+    assert want.keys() == got.keys()
+    for k in want:
+        assert_same(want[k], got[k], f"{query} {k}")

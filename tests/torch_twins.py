@@ -22,6 +22,7 @@ _NP_OF_TORCH = {
 
 CPU = torch.device("cpu")
 I32MAX = np.iinfo(np.int32).max
+I32MIN = np.iinfo(np.int32).min
 
 
 def bucketize_cases(rng):
@@ -73,6 +74,49 @@ def rle_case(name):
     ends = np.concatenate([starts[1:] - 1, [nrows - 1]]).astype(np.int32)
     vals = rng.integers(1, 100, n_runs).astype(np.int32)
     return vals, starts, ends, n_runs, nrows, 0
+
+
+def topk_case(name):
+    """(values, ks) of a top-k edge case of ``chip_smoke.py``'s list."""
+    rng = np.random.default_rng(len(name))
+    ints = lambda n: rng.integers(-50, 50, n).astype(np.int32)  # noqa: E731
+    floats = lambda n: rng.standard_normal(n).astype(np.float32)  # noqa: E731
+    if name == "n0_int32":
+        return ints(0), (8,)
+    if name == "n1_float32":
+        return floats(1), (1,)
+    if name == "n7_below_k_int32":
+        return ints(7), (8,)
+    if name == "n2047_float32":
+        return floats(2047), (128,)
+    if name == "n2048_int32":
+        return ints(2048), (1,)
+    if name == "n2049_float32":
+        return floats(2049), (37,)
+    if name == "n20000_multi_tile_int32":
+        return ints(20_000), (256,)
+    if name == "all_equal_int32":
+        return np.full(5000, 7, np.int32), (128,)
+    if name == "int32_min_rows":
+        x = ints(3000)
+        x[rng.random(3000) < 0.9] = I32MIN  # fewer real rows than k
+        return x, (256,)
+    if name == "int32_min_below_k":
+        return np.full(5, I32MIN, np.int32), (8,)  # real rows beat pads
+    if name == "inf_float32":
+        x = floats(4100)
+        x[rng.choice(4100, 40, replace=False)] = np.inf
+        x[rng.choice(4100, 40, replace=False)] = -np.inf
+        return x, (64,)
+    if name == "signed_zeros_float32":
+        return rng.choice([0.0, -0.0, 1.0, -1.0], 300).astype(np.float32), (16,)
+    raise ValueError(name)
+
+
+TOPK_CASES = ["n0_int32", "n1_float32", "n7_below_k_int32", "n2047_float32",
+              "n2048_int32", "n2049_float32", "n20000_multi_tile_int32",
+              "all_equal_int32", "int32_min_rows", "int32_min_below_k",
+              "inf_float32", "signed_zeros_float32"]
 
 
 @pytest.fixture

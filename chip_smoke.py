@@ -19,8 +19,11 @@ first error:
    boundaries above the shared-memory route, a partially covered RLE with
    ``n < cap``; for topk int32 and float32, n in {0, 1, 7, 2047, 2048,
    2049, 1_000_003} by k in {1, 8, 37, 128, 256}, all-equal inputs,
-   INT32_MIN rows, +-inf, signed zeros and an input of five survivor
-   passes). Integer outputs, the decoders and topk must be equal (topk
+   INT32_MIN rows, +-inf, signed zeros, an input of a survivor pass,
+   3M-key ascending, descending, tied and nearly-all-INT32_MIN inputs,
+   three grid caps that must give the same bits, and views at offsets 1-3;
+   for bucketize_kernel also query views at storage offset 1 with
+   nq % 4 != 0). Integer outputs, the decoders and topk must be equal (topk
    values and indices, and bit-identical across two launches);
    segment_sum must be within rtol=1e-4 of a float64 host sum and
    bit-identical across two launches.
@@ -63,9 +66,19 @@ first error:
    ``topk_kernel`` was not launched.
 6. Kernel timing at the largest inputs the main path gave each kernel:
    kernel, plain-version and (where one PyTorch call computes the same
-   function) library times by CUDA events, median of 10 after warm-up,
-   beside the least time the card could take (bytes over 3.35 TB/s, or
-   operations over 67 TFLOP/s, whichever is larger).
+   function) library times by CUDA events, beside the least time the card
+   could take (bytes over 3.35 TB/s, or operations over 67 TFLOP/s,
+   whichever is larger). Two times of the kernel and of the library
+   call: per launch (``ms``: events around one call, so the host's
+   dispatch of the call is inside the window; median of 10 after warm-up,
+   of 30 each where a library call is timed in turns with the kernel) and
+   back to back (``ms_back_to_back``: N calls between one pair of events,
+   over N). ``topk_kernel`` is also timed at one streamed partition
+   (2^23 keys), at R1's length in ascending order (its worst case), and
+   back to back at grid caps of 1, 2 and 4 blocks an SM;
+   ``bucketize_kernel`` and ``torch.searchsorted`` get their host time a
+   call (host clock, no synchronisation inside a batch) and their device
+   time a call (``torch.profiler``).
 7. A ``{"kernels": [...]}`` summary line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -451,6 +464,116 @@ def time_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
+def time_turns_ms(fn, other, iters=30, warmup=2):
+    """``time_ms`` of ``fn`` and of ``other`` taken in turns (fn, other,
+    other, fn, ...), so both meet the same clocks and host load: the
+    medians of ``iters`` calls each."""
+    import torch
+    for _ in range(warmup):
+        fn()
+        other()
+    times = ([], [])
+    for i in range(iters):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            (fn, other)[j]()
+            b.record()
+            b.synchronize()
+            times[j].append(a.elapsed_time(b))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def time_b2b_ms(fn, per_launch_ms, budget_ms=25.0):
+    """Milliseconds a launch of ``fn`` takes back to back: N launches
+    between one pair of CUDA events, over N (N sized to about
+    ``budget_ms`` of work, 10 to 200), after warm-up. Unlike ``time_ms``,
+    the host's dispatch of a launch overlaps the device work of the one
+    before it."""
+    import torch
+    n = int(min(200, max(10, budget_ms / max(per_launch_ms, 1e-3))))
+    fn()
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def host_us(fn, batch=20, reps=30):
+    """Host microseconds one call of ``fn`` takes: the median over ``reps``
+    batches of ``batch`` calls, timed on the host's clock with no
+    synchronisation inside a batch (the card drains between batches)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        times.append((time.perf_counter() - t0) / batch * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_us(fn, key, reps=50):
+    """Device microseconds one call of ``fn`` takes: the CUDA time
+    ``torch.profiler`` books to kernels whose name holds ``key``, over
+    ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if key in e.key and not e.key.startswith("aten::"):
+            total += getattr(e, "device_time_total", None) or e.cuda_time_total
+    return total / reps if total else None
+
+
+def topk_more_shapes(dev, k):
+    """``topk_kernel`` beside ``torch.topk`` at one streamed partition
+    (2^23 random int32 keys) and at R1's length in ascending order (every
+    key beats the running threshold: the kernel's worst case), each held
+    against ``ref.topk``: per-launch and back-to-back ms, and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk as kt
+    rng = np.random.default_rng(11)
+    out = []
+    for what, n in (("streamed partition, random", 1 << 23),
+                    ("R1 length, ascending", LINEITEM_ROWS[10.0])):
+        if what.endswith("random"):
+            x = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, n,
+                                              dtype=np.int32)).to(dev)
+        else:
+            x = torch.arange(n, dtype=torch.int32, device=dev)
+        got, want = kt.topk_kernel(x, k), ref.topk(x, k)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"topk_kernel disagrees: {what}")
+        kern = lambda: kt.topk_kernel(x, k)  # noqa: E731
+        lib = lambda: torch.topk(x, k)  # noqa: E731
+        k_ms, lib_ms = time_turns_ms(kern, lib)
+        out.append({"case": what, "values": n, "k": k,
+                    "passes": kt.passes(n, k), "ms": k_ms,
+                    "ms_back_to_back": time_b2b_ms(kern, k_ms),
+                    "library_ms": lib_ms,
+                    "library_ms_back_to_back": time_b2b_ms(lib, lib_ms),
+                    "bound_ms": bound_ms(4 * n + 8 * k, n)[0]})
+        del x, got, want
+    return out
+
+
 def bound_ms(nbytes, nops):
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = nops / FP32_OPS_PER_S * 1e3
@@ -507,6 +630,20 @@ def kernel_edge_cases(dev):
                 same(kb.bucketize_count_kernel(bb, qq, right), want,
                      f"bucketize_count_kernel {what} {dtype.__name__} {right}")
                 cases += 1
+    # views at storage offset 1 (queries not 16-byte aligned: the scalar
+    # loads), nq % 4 != 0, and the 16-byte route's ragged ends
+    for nq in (1, 3, 5, 1023, 1025, 300_001):
+        for dtype in (np.int32, np.float32):
+            b = np.sort(rng.integers(-50, 50, 550)).astype(dtype)
+            q = rng.integers(-60, 60, nq + 1).astype(dtype)
+            for off in (0, 1):
+                bb, qq = t(b), t(q)[off:off + nq]
+                for right in (True, False):
+                    same(kb.bucketize_kernel(bb, qq, right),
+                         ref.ref_bucketize(bb, qq, right),
+                         f"bucketize_kernel offset {off} nq={nq} "
+                         f"{dtype.__name__} {right}")
+                    cases += 1
     nanq = t(np.array([np.nan, 1.0, 5.0], np.float32))
     nanb = t(np.array([1.0, 2.0, 3.0], np.float32))
     for right in (True, False):
@@ -729,15 +866,45 @@ def topk_edge_cases(dev):
         for k in (1, 37, 256):
             check(t(x), k, what)
             cases += 1
-    n = 3_000_000  # five passes at k = 256
+    n = 3_000_000  # the range pass and one survivor pass at k = 256
     x = t(rng.integers(-(2**31), 2**31 - 1, n, endpoint=True).astype(np.int32))
     before = _build.LAUNCHES["topk_kernel"]
-    check(x, 256, "five survivor passes")
+    check(x, 256, "a survivor pass")
     launched = (_build.LAUNCHES["topk_kernel"] - before) // 2
-    if launched != kt.passes(n, 256) or launched < 3:
+    if launched != kt.passes(n, 256) or launched < 2:
         raise AssertionError(f"topk_kernel: {launched} passes at n={n}")
+    cases += 1
+    # the inputs that stress the running threshold, at 3M keys
+    ramp = np.arange(n, dtype=np.int64) - n // 2
+    stress = {
+        "ascending int32": ramp.astype(np.int32),
+        "descending float32": (-ramp).astype(np.float32),
+        # equal values in runs of 50,000 across the block ranges' edges
+        "ties straddling ranges": (ramp // 50_000).astype(np.int32),
+        "all INT32_MIN but a few": np.where(
+            rng.random(n) < 0.99995, i32min, rng.integers(-3, 3, n)
+        ).astype(np.int32),
+    }
+    for what, xs in stress.items():
+        for k in (8, 100, 256):
+            check(t(xs), k, what)
+            cases += 1
+    # the answer does not depend on the grid; misaligned starts are legal
+    xs = t(stress["ties straddling ranges"])
+    want = kt.topk_kernel(xs, 128)
+    for cap in (2, 7, 100):
+        got = kt.topk_kernel(xs, 128, max_blocks=cap)
+        if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"topk_kernel: grid cap {cap} differs")
+        cases += 1
+    for dtype in (np.int32, np.float32):
+        base = t(rng.integers(-1000, 1000, 1_000_003).astype(dtype))
+        for off in (1, 2, 3):
+            check(base[off:], 37, f"{dtype.__name__} view at offset {off}")
+            cases += 1
     torch.cuda.synchronize()
-    return cases + 1
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +912,7 @@ def topk_edge_cases(dev):
 # ---------------------------------------------------------------------------
 
 
-def kernel_timing(launches):
+def kernel_timing(launches, largest):
     import torch
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import bucketize as kb
@@ -756,8 +923,8 @@ def kernel_timing(launches):
 
     rows = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        rec = _build.LARGEST[name]
-        lib_what = None
+        rec = largest[name]
+        lib_what, lib_fn = None, None
         if name in ("bucketize_kernel", "bucketize_count_kernel"):
             b, q, right = rec["boundaries"], rec["queries"], rec["right"]
             kern = (kb.bucketize_kernel if name == "bucketize_kernel"
@@ -769,13 +936,19 @@ def kernel_timing(launches):
                 raise AssertionError(f"{name} disagrees at the query shape")
             nb, nq = b.shape[0], q.shape[0]
             shape = {"boundaries": nb, "queries": nq, "dtype": str(q.dtype),
-                     "right": right}
+                     "right": right, "queries_offset": q.storage_offset()}
             nbytes, nops = 4 * (nb + 2 * nq), nq * _steps(nb)
-            k_ms = time_ms(lambda: kern(b, q, right))
-            p_ms = time_ms(lambda: ref.ref_bucketize(b, q, right))
-            lib_ms = time_ms(lambda: torch.searchsorted(b, q, right=right,
-                                                        out_int32=True))
+            kern_fn = lambda: kern(b, q, right)  # noqa: E731
+            plain_fn = lambda: ref.ref_bucketize(b, q, right)  # noqa: E731
+            lib_fn = lambda: torch.searchsorted(  # noqa: E731
+                b, q, right=right, out_int32=True)
             lib_what = "torch.searchsorted"
+            if name == "bucketize_kernel":  # where a launch's time goes
+                shape["host_us"] = {"kernel": host_us(kern_fn),
+                                    lib_what: host_us(lib_fn)}
+                shape["device_us"] = {
+                    "kernel": device_us(kern_fn, "bucketize_smem_kernel"),
+                    lib_what: device_us(lib_fn, "searchsorted")}
         elif name == "rle_decode_kernel":
             v, s, e, n = rec["values"], rec["starts"], rec["ends"], rec["n"]
             nrows, fill = rec["nrows"], rec["fill"]
@@ -787,9 +960,10 @@ def kernel_timing(launches):
             cap = v.shape[0]
             shape = {"capacity": cap, "nrows": nrows, "dtype": str(v.dtype)}
             nbytes, nops = 12 * cap + 4 + 4 * nrows, nrows * _steps(cap)
-            k_ms = time_ms(lambda: rle_decode_kernel(v, s, e, n, nrows, fill))
-            p_ms = time_ms(lambda: ref.ref_rle_decode(v, s, e, n, nrows, fill))
-            lib_ms = None
+            kern_fn = lambda: rle_decode_kernel(  # noqa: E731
+                v, s, e, n, nrows, fill)
+            plain_fn = lambda: ref.ref_rle_decode(  # noqa: E731
+                v, s, e, n, nrows, fill)
         elif name == "unpack_kernel":
             w, b, off, n = (rec["words"], rec["bit_width"], rec["offset"],
                             rec["nvals"])
@@ -799,9 +973,8 @@ def kernel_timing(launches):
             err = 0.0
             shape = {"values": n, "bit_width": b, "words": w.shape[0]}
             nbytes, nops = 4 * w.shape[0] + 4 * n, n
-            k_ms = time_ms(lambda: ku.unpack_kernel(w, b, off, n))
-            p_ms = time_ms(lambda: ref.ref_unpack(w, b, off, n))
-            lib_ms = None
+            kern_fn = lambda: ku.unpack_kernel(w, b, off, n)  # noqa: E731
+            plain_fn = lambda: ref.ref_unpack(w, b, off, n)  # noqa: E731
         elif name == "bucketize_packed_kernel":
             bnd, w, b, off, n, right = (rec["boundaries"], rec["words"],
                                         rec["bit_width"], rec["offset"],
@@ -816,15 +989,19 @@ def kernel_timing(launches):
                      "right": right}
             nbytes = 4 * (nb + w.shape[0] + n)
             nops = n * _steps(nb)
-            k_ms = time_ms(lambda: ku.bucketize_packed_kernel(bnd, w, b, off, n,
-                                                              right))
-            p_ms = time_ms(lambda: ref.ref_bucketize_packed(bnd, w, b, off, n,
-                                                            right))
-            # the library yardstick searches the already-unpacked queries
+            kern_fn = lambda: ku.bucketize_packed_kernel(  # noqa: E731
+                bnd, w, b, off, n, right)
+            plain_fn = lambda: ref.ref_bucketize_packed(  # noqa: E731
+                bnd, w, b, off, n, right)
+            # no PyTorch call computes this function: torch.searchsorted
+            # needs the queries unpacked first. Timed beside it, it is not
+            # the library time of the kernel line.
             q = ref.ref_unpack(w, b, off, n)
-            lib_ms = time_ms(lambda: torch.searchsorted(bnd, q, right=right,
-                                                        out_int32=True))
-            lib_what = "torch.searchsorted on the already-unpacked queries"
+            searched = lambda: torch.searchsorted(  # noqa: E731
+                bnd, q, right=right, out_int32=True)
+            shape["searchsorted_on_unpacked_ms"] = time_ms(searched)
+            shape["searchsorted_on_unpacked_ms_back_to_back"] = time_b2b_ms(
+                searched, shape["searchsorted_on_unpacked_ms"])
         elif name == "rle_decode_packed_kernel":
             w, b, off, cap = (rec["words"], rec["bit_width"], rec["offset"],
                               rec["cap"])
@@ -845,7 +1022,7 @@ def kernel_timing(launches):
             shape = {"capacity": cap, "nrows": nrows, "bit_width": b}
             nbytes = 4 * w.shape[0] + 8 * cap + 4 + 4 * nrows
             nops = nrows * _steps(cap)
-            k_ms, p_ms, lib_ms = time_ms(kern), time_ms(plain), None
+            kern_fn, plain_fn = kern, plain
         elif name == "topk_kernel":
             x, k = rec["values"], rec["k"]
             got, want = kt.topk_kernel(x, k), ref.topk(x, k)
@@ -859,11 +1036,26 @@ def kernel_timing(launches):
             # keys read once, k (value, index) pairs written; at least one
             # comparison a key
             nbytes, nops = 4 * n + 8 * k, n
-            k_ms = time_ms(lambda: kt.topk_kernel(x, k))
-            p_ms = time_ms(lambda: ref.topk(x, k))
+            kern_fn = lambda: kt.topk_kernel(x, k)  # noqa: E731
+            plain_fn = lambda: ref.topk(x, k)  # noqa: E731
             # same values; its tie order is not documented
-            lib_ms = time_ms(lambda: torch.topk(x, k))
+            lib_fn = lambda: torch.topk(x, k)  # noqa: E731
             lib_what = "torch.topk"
+            shape["more_shapes"] = topk_more_shapes(x.device, k)
+            # the whole call at other grid caps than the default
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            shape["grid_caps"] = []
+            for per_sm in (1, kt.BLOCKS_PER_SM, 4):
+                cap = sms * per_sm
+                capped = lambda: kt.topk_kernel(  # noqa: E731
+                    x, k, max_blocks=cap)
+                if not all(torch.equal(g, w) for g, w in zip(capped(), want)):
+                    raise AssertionError(f"{name} disagrees at cap {cap}")
+                shape["grid_caps"].append({
+                    "blocks_per_sm": per_sm,
+                    "grid": kt.plan(n, k, cap)[0].grid,
+                    "ms_back_to_back": time_b2b_ms(capped, 0.2)})
         else:
             v, ids, g = rec["values"], rec["segment_ids"], rec["num_segments"]
             got = segment_sum_kernel(v, ids, g)
@@ -880,21 +1072,32 @@ def kernel_timing(launches):
             n = v.shape[0]
             shape = {"values": n, "num_segments": g}
             nbytes, nops = 8 * n + 4 * g, n
-            k_ms = time_ms(lambda: segment_sum_kernel(v, ids, g))
-            p_ms = time_ms(lambda: ref.ref_segment_reduce(v, ids, g))
-            lib_ms = None
+            kern_fn = lambda: segment_sum_kernel(v, ids, g)  # noqa: E731
+            plain_fn = lambda: ref.ref_segment_reduce(v, ids, g)  # noqa: E731
             if bool(keep.all()):  # one index_add_ computes the same function
-                lib_ms = time_ms(lambda: torch.zeros(g, device=v.device)
-                                 .index_add_(0, ids, v))
+                lib_fn = lambda: torch.zeros(  # noqa: E731
+                    g, device=v.device).index_add_(0, ids, v)
                 lib_what = "index_add_"
+        lib_ms = lib_b2b = None
+        if lib_fn is not None:  # kernel and library call in turns
+            k_ms, lib_ms = time_turns_ms(kern_fn, lib_fn)
+            lib_b2b = time_b2b_ms(lib_fn, lib_ms)
+        else:
+            k_ms = time_ms(kern_fn)
+        p_ms = time_ms(plain_fn)
+        k_b2b = time_b2b_ms(kern_fn, k_ms)
         b_ms, b_by = bound_ms(nbytes, nops)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        print(json.dumps({"kernel": name, "kernel_ms": k_ms, "plain_ms": p_ms,
-                          "library_ms": lib_ms, "library": lib_what,
-                          "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "ms_back_to_back": k_b2b, "library_ms_back_to_back": lib_b2b}
+        print(json.dumps({"kernel": name, "kernel_ms_per_launch": k_ms,
+                          "kernel_ms_back_to_back": k_b2b, "plain_ms": p_ms,
+                          "library_ms_per_launch": lib_ms,
+                          "library_ms_back_to_back": lib_b2b,
+                          "library": lib_what, "bound_ms": b_ms,
+                          "bound_by": b_by, "shape": shape,
                           "launches": launches[name],
                           "max_abs_err": err}), flush=True)
         rows.append(row)
@@ -1208,6 +1411,14 @@ def ordering_phase(dev, shared, runs, profile_dir=None):
             results.append(res)
             times.append(ms)
         check_ranked(name, results[0], want)
+        if name == "R1" and dev.type == "cuda":
+            # every run launches topk.passes(rows, k) times
+            n_keys = _build.LARGEST["topk_kernel"]["values"].shape[0]
+            expect = kt.passes(n_keys, kt.k_pow2_of(100))
+            got = rec["launches_per_run"]["topk_kernel"]
+            if got != expect:
+                raise AssertionError(f"R1: {got} topk launches a resident run, "
+                                     f"want {expect}")
         for other in results[1:]:
             if _bits(other) != _bits(results[0]):
                 raise AssertionError(f"{name}: re-run is not bit-identical")
@@ -1362,8 +1573,10 @@ def main(argv=None) -> int:
                                    "ordering": ordering}}), flush=True)
     launches = {k: resident[k] + streamed[k] + ordering[k]
                 for k in _build.KERNELS}
-    rows = kernel_timing(launches)
+    # the inputs the main path gave each kernel; no capture while timing
+    largest = dict(_build.LARGEST)
     _build.capture(False)
+    rows = kernel_timing(launches, largest)
     print(json.dumps({"card": card, "queries": {
         k: {"warm_median_ms": v["warm_median_ms"], "ingest_s": v["ingest_s"]}
         for k, v in per_query.items()}, "out_of_core": {

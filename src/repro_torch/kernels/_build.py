@@ -31,7 +31,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("bucketize.cu", "rle_decode.cu", "segment_reduce.cu", "unpack.cu",
            "topk.cu")
-HEADERS = ("bisect.cuh",)  # included by bucketize.cu and unpack.cu
+HEADERS = ("bisect.cuh", "launch.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -26,8 +26,9 @@
 //     int32, which makes width-32 passthrough exact.
 //   * bucketize_packed: the bisection of csrc/bisect.cuh (shared with
 //     bucketize.cu, so the packed route compares exactly as the unpacked one).
-//     Boundaries up to 58,112 are staged in shared memory by a persistent grid;
-//     above that the bisection reads them through L2. There is no VMEM-style
+//     Boundaries up to 58,112 are staged in shared memory by a persistent grid
+//     (sized by smem_grid, which reads the occupancy once per kernel and
+//     device and opts in beyond 48 KB only); above that the bisection reads them through L2. There is no VMEM-style
 //     ceiling on the word stream: words are read through L2.
 //   * rle_decode_packed: rle_decode.cu's left bisection over `ends`, clamp to
 //     cap - 1, coverage test (row in [start, end] and run < n) and `fill`; the
@@ -183,12 +184,17 @@ extern "C" int repro_bucketize_packed(const void* boundaries, int64_t nb,
     k<<<flat_grid(nvals), kThreads, 0, s>>>(bp, nb, steps, p, nvals, op);
     return static_cast<int>(cudaGetLastError());
   }
+  const size_t smem = static_cast<size_t>(nb) * sizeof(int32_t);
+  const int64_t blocks = (nvals + kSmemThreads - 1) / kSmemThreads;
+  unsigned grid = 0;
+  cudaError_t err =
+      right ? repro::smem_grid<bucketize_packed_smem_kernel<true>>(
+                  kSmemThreads, smem, blocks, &grid)
+            : repro::smem_grid<bucketize_packed_smem_kernel<false>>(
+                  kSmemThreads, smem, blocks, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   Kernel k = right ? bucketize_packed_smem_kernel<true>
                    : bucketize_packed_smem_kernel<false>;
-  const size_t smem = static_cast<size_t>(nb) * sizeof(int32_t);
-  unsigned grid = 0;
-  cudaError_t err = repro::smem_grid(k, kSmemThreads, smem, nvals, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
   k<<<grid, kSmemThreads, smem, s>>>(bp, nb, steps, p, nvals, op);
   return static_cast<int>(cudaGetLastError());
 }

@@ -245,8 +245,8 @@ def test_gpu_topk_kernel_matches_plain(cuda_device, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k", [(1_000_003, 100), (3_000_000, 256)])
 def test_gpu_topk_kernel_multi_pass(cuda_device, n, k):
-    """Inputs of three and more survivor passes: one launch a pass, and
-    the stable sort's answer."""
+    """Inputs of a range pass over many blocks and a survivor pass: one
+    launch a pass, and the stable sort's answer."""
     from repro_torch.kernels import topk as kt
     rng = np.random.default_rng(n)
     x = rng.integers(-100, 100, n).astype(np.int32)
@@ -254,11 +254,114 @@ def test_gpu_topk_kernel_multi_pass(cuda_device, n, k):
     xx = _t(x, cuda_device)
     before = _build.LAUNCHES["topk_kernel"]
     v, i = kt.topk_kernel(xx, k)
-    assert _build.LAUNCHES["topk_kernel"] - before == kt.passes(n, k) >= 3
+    assert _build.LAUNCHES["topk_kernel"] - before == kt.passes(n, k) >= 2
     wv, wi = ref.topk(xx, k)
     assert torch.equal(v, wv) and torch.equal(i, wi)
     order = np.lexsort((np.arange(n), -x.astype(np.int64)))[:k]
     np.testing.assert_array_equal(i.cpu().numpy(), order)
+
+
+def _topk_stress(pattern, n):
+    ramp = np.arange(n, dtype=np.int64) - n // 2
+    if pattern == "ascending":
+        return ramp.astype(np.int32)
+    if pattern == "descending":
+        return (-ramp).astype(np.float32)
+    # equal values in runs of 50,000, so ties straddle the block ranges
+    return (ramp // 50_000).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["ascending", "descending", "ties"])
+def test_gpu_topk_kernel_threshold_stress(cuda_device, pattern):
+    """3M keys in ascending order (every key beats the running threshold),
+    descending (none does after the first step) and in tied runs across
+    the block ranges: the stable sort's answer, bit-identical twice."""
+    from repro_torch.kernels import topk as kt
+    n = 3_000_000
+    x = _topk_stress(pattern, n)
+    xx = _t(x, cuda_device)
+    for k in (8, 100, 256):
+        got, again = kt.topk_kernel(xx, k), kt.topk_kernel(xx, k)
+        want = ref.topk(xx, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), again[0].view(torch.int32))
+        assert torch.equal(got[1], again[1])
+        order = np.lexsort((np.arange(n), -x.astype(np.float64)))[:k]
+        np.testing.assert_array_equal(got[1].cpu().numpy(), order)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_gpu_topk_kernel_grid_independent(cuda_device, dtype):
+    """The answer does not depend on the range pass's grid (three caps
+    against the card's own) nor on a misaligned start (views at offsets
+    1-3, a scalar head before the 16-byte loads)."""
+    from repro_torch.kernels import topk as kt
+    rng = np.random.default_rng(5)
+    x = rng.integers(-500, 500, 2_000_003).astype(dtype)
+    xx = _t(x, cuda_device)
+    want = ref.topk(xx, 128)
+    for cap in (None, 2, 7, 61):
+        got = kt.topk_kernel(xx, 128, max_blocks=cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for off in (1, 2, 3):
+        view = xx[off:]
+        got = kt.topk_kernel(view, 37)
+        w = ref.topk(view, 37)
+        assert torch.equal(got[0], w[0]) and torch.equal(got[1], w[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 550, 58_112])
+@pytest.mark.parametrize("nq", [1, 3, 5, 1_406_900])
+def test_gpu_bucketize_kernel_views_and_sizes(cuda_device, nb, nq):
+    """bucketize_kernel on the 16-byte route (aligned queries, ragged ends
+    when nq % 4 != 0) and the scalar route (a query view at storage offset
+    1), from one boundary to the shared-memory limit (the persistent grid
+    and the opt-in above 48 KB), both dtypes, right and left."""
+    rng = np.random.default_rng(nb + nq)
+    for dtype in (np.int32, np.float32):
+        b = np.sort(rng.integers(-10**6, 10**6, nb)).astype(dtype)
+        q = rng.integers(-10**6 - 5, 10**6 + 5, nq + 1).astype(dtype)
+        bb = _t(b, cuda_device)
+        qall = _t(q, cuda_device)
+        for off in (0, 1):
+            qq = qall[off:off + nq]
+            assert qq.is_contiguous() and qq.storage_offset() == off
+            for right in (True, False):
+                want = ref.ref_bucketize(bb, qq, right)
+                assert torch.equal(kb.bucketize_kernel(bb, qq, right), want)
+                np.testing.assert_array_equal(
+                    want.cpu().numpy(),
+                    np.searchsorted(b, q[off:off + nq],
+                                    side="right" if right else "left"))
+
+
+@pytest.mark.gpu
+def test_gpu_bucketize_plan_and_launch_paths(cuda_device):
+    """The shared-memory route under each of ``launch_plan``'s plans
+    (16-byte or scalar loads, one tile a block or a persistent grid on
+    either side of ``TILE`` boundaries) gives the plain counts, and every
+    call of either route books one launch."""
+    rng = np.random.default_rng(8)
+    base = _t(rng.integers(-5, 1005, 100_008).astype(np.int32), cuda_device)
+    for nb in (kb.TILE, kb.TILE + 1):
+        b = _t(np.sort(rng.integers(0, 1000, nb)).astype(np.int32), cuda_device)
+        for off in (0, 1, 2, 4):
+            q = base[off:off + 100_003]
+            out = torch.empty_like(q)
+            plan = kb.launch_plan(nb, q.data_ptr(), out.data_ptr())
+            assert bool(plan & kb.VECTORIZED) == (off % 4 == 0)
+            assert bool(plan & kb.PERSISTENT) == (nb > kb.TILE)
+            for right, name, fn in (
+                    (True, "bucketize_kernel", kb.bucketize_kernel),
+                    (False, "bucketize_count_kernel",
+                     kb.bucketize_count_kernel)):
+                before = _build.LAUNCHES[name]
+                got = fn(b, q, right)
+                assert _build.LAUNCHES[name] - before == 1
+                assert torch.equal(got, ref.ref_bucketize(b, q, right))
 
 
 @pytest.mark.gpu

@@ -45,6 +45,36 @@ def test_bucketize_plain_matches_pallas(rng, case, dtype):
                         f"count route {case}")
 
 
+def test_bucketize_launch_plan():
+    """The shared-memory route's host-side plan: four queries a thread, by
+    one 16-byte load and store when the queries and the counts are both
+    16-byte aligned, else by scalar loads 256 apart (a view at storage
+    offset 1); either way the kernel's indexing takes every query of every
+    tile once; one tile a block unless the boundaries outnumber a tile's
+    queries, then a persistent grid."""
+    for q_ptr, o_ptr, vec in ((0x1000, 0x2000, True), (0x1004, 0x2000, False),
+                              (0x1000, 0x2008, False), (0x100c, 0x200c, False)):
+        assert bool(kb.launch_plan(550, q_ptr, o_ptr) & kb.VECTORIZED) == vec
+    base = torch.zeros(9, dtype=torch.int32)
+    view, out = base[1:], torch.empty(8, dtype=torch.int32)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    assert not kb.launch_plan(550, view.data_ptr(), out.data_ptr()) & kb.VECTORIZED
+    t = np.arange(kb.THREADS)[None, :, None]
+    j = np.arange(kb.PER_THREAD)[None, None, :]
+    for nq in (1, 3, 5, 1023, 1024, 1025, 4099, 1_406_900):
+        tile = np.arange(-(-nq // kb.TILE))[:, None, None] * kb.TILE
+        for vec in (True, False):
+            idx = tile + (kb.PER_THREAD * t + j if vec else t + kb.THREADS * j)
+            assert np.array_equal(np.sort(idx[idx < nq]), np.arange(nq))
+    for nb in (1, 550, kb.TILE):
+        assert kb.launch_plan(nb, 0, 0) == kb.VECTORIZED
+    for nb in (kb.TILE + 1, kb.MAX_SMEM_BOUNDARIES):
+        assert kb.launch_plan(nb, 0, 0) == kb.VECTORIZED | kb.PERSISTENT
+    assert kb.launch_plan(kb.TILE + 1, 4, 0) == kb.PERSISTENT
+    # the C entry's other bits (float32 1, right 2, global 4) stay clear
+    assert kb.VECTORIZED & 7 == kb.PERSISTENT & 7 == 0
+
+
 def test_bucketize_nan_queries():
     """A NaN query counts every boundary on both packages."""
     b = np.array([1.0, 2.0, 3.0], np.float32)
@@ -334,56 +364,207 @@ def test_topk_plain_matches_pallas(case):
             assert_same(li, got["ref"][1], f"{case} k={k} lax indices")
 
 
-def _emulate_topk_kernel(values: torch.Tensor, k: int):
-    """The CUDA kernel's algorithm in plain PyTorch: each 2048-pair tile
-    (pads: worst value, index = position on the first pass, INT32_MAX on
-    survivor passes) sorted by (value desc, index asc), its top k_pow2
-    kept; relaunched on the survivors until one tile is left."""
+def _rank(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Permutation ordering (v, i) pairs by (value desc, index asc), the
+    kernel's comparator; floats compare as numbers."""
+    by_index = torch.sort(i.to(torch.int64), stable=True).indices
+    key = v[by_index] + 0.0 if v.dtype.is_floating_point else v[by_index]
+    return by_index[torch.sort(key, descending=True, stable=True).indices]
+
+
+def _beats(v, i, tv, ti):
+    """Pairs (v, i) ranked before the pair (tv, ti)."""
+    return (v > tv) | ((v == tv) & (i < ti))
+
+
+def _emulate_topk_kernel(values: torch.Tensor, k: int, max_blocks: int = 528,
+                         misalign: int = 0):
+    """``csrc/topk.cu``'s algorithm in plain PyTorch, launch by launch as
+    ``topk.plan`` gives them: each block walks its range (a scalar head of
+    ``(4 - misalign) % 4`` keys and the ragged tail first, then steps of
+    ``CHUNK`` keys in thread order), tests every key against the last pair
+    of its running top-k_pow2 list, appends the survivors to a
+    ``BUFFER``-pair buffer, and when a step would overflow it (and at the
+    end) flushes: sorts the buffer, takes the better of ``L[i]`` and
+    ``B[K-1-i]`` (the first exchange of a bitonic merge), sorts that, and
+    tests the step again. Pads are (worst, INT32_MAX); the one-block last
+    launch gives a pad its slot as index. Returns ``(vals, idx, launches,
+    flushes)``."""
     from repro_torch.kernels import topk as kt
-    kp = kt.k_pow2_of(k)
-    vals, idx, first, launches = values, None, True, 0
-    while True:
-        m = vals.shape[0]
-        tiles = max(1, -(-m // kt.TILE))
-        pad = tiles * kt.TILE - m
-        pv = torch.cat([vals, torch.full((pad,), ref.worst_value(vals.dtype),
-                                         dtype=vals.dtype)])
-        base = torch.arange(tiles * kt.TILE, dtype=torch.int64)
-        if first:
-            pi = base
-        else:
-            pi = torch.cat([idx.to(torch.int64),
-                            torch.full((pad,), np.iinfo(np.int32).max,
-                                       dtype=torch.int64)])
+    kp, pad = kt.k_pow2_of(k), np.iinfo(np.int32).max
+    worst = ref.worst_value(values.dtype)
+    cur_v, cur_i, launches, flushes = values, None, 0, 0
+    for launch in kt.plan(values.shape[0], k, max_blocks):
         out_v, out_i = [], []
-        for t in range(tiles):
-            tv = pv[t * kt.TILE:(t + 1) * kt.TILE]
-            ti = pi[t * kt.TILE:(t + 1) * kt.TILE]
-            order = np.lexsort((ti.numpy(), -tv.numpy().astype(np.float64)))
-            out_v.append(tv[order[:kp]])
-            out_i.append(ti[order[:kp]])
-        vals, idx = torch.cat(out_v), torch.cat(out_i).to(torch.int32)
-        first, launches = False, launches + 1
-        if tiles == 1:
-            return vals[:k], idx[:k], launches
+        skew = misalign if cur_i is None else 0
+        for b in range(launch.grid):
+            s = b * launch.range_rows
+            e = min(launch.rows, s + launch.range_rows)
+            lv = torch.full((kp,), worst, dtype=values.dtype)
+            li = torch.full((kp,), pad, dtype=torch.int64)
+            buf_v, buf_i = [], []
+
+            def flush():
+                nonlocal lv, li, flushes
+                bv, bi = torch.cat(buf_v), torch.cat(buf_i)
+                o = _rank(bv, bi)[:kp]
+                bv = torch.cat([bv[o], torch.full((kp - o.numel(),), worst,
+                                                  dtype=values.dtype)])
+                bi = torch.cat([bi[o], torch.full((kp - o.numel(),), pad,
+                                                  dtype=torch.int64)])
+                rb_v, rb_i = bv.flip(0), bi.flip(0)
+                first = ~_beats(rb_v, rb_i, lv, li)
+                mv, mi = torch.where(first, lv, rb_v), torch.where(first, li, rb_i)
+                o = _rank(mv, mi)
+                lv, li = mv[o], mi[o]
+                buf_v.clear()
+                buf_i.clear()
+                flushes += 1
+
+            def offer(v, i):
+                while True:
+                    keep = _beats(v, i, lv[-1], li[-1])
+                    total = int(keep.sum())
+                    if total == 0:
+                        return
+                    if sum(x.numel() for x in buf_v) + total > kt.BUFFER:
+                        flush()
+                        continue
+                    buf_v.append(v[keep])
+                    buf_i.append(i[keep])
+                    return
+
+            rows = torch.arange(s, max(s, e), dtype=torch.int64)
+            src_i = rows if cur_i is None else cur_i[s:e].to(torch.int64)
+            src_v = cur_v[s:e]
+            head = min((4 - skew) % 4, max(0, e - s))
+            body = (max(0, e - s) - head) // 4 * 4
+            ragged = torch.cat([torch.arange(head),
+                                torch.arange(head + body, max(0, e - s))])
+            if ragged.numel():
+                offer(src_v[ragged], src_i[ragged])
+            for base in range(head, head + body, kt.CHUNK):
+                step = torch.arange(base, min(base + kt.CHUNK, head + body))
+                # thread t holds keys 4t..4t+3 and half+4t..half+4t+3
+                rel, half = step - base, 4 * kt.THREADS
+                order = torch.argsort((rel % half) // 4 * 8 + rel // half * 4
+                                      + rel % 4)
+                offer(src_v[step[order]], src_i[step[order]])
+            if buf_v:
+                flush()
+            out_v.append(lv)
+            out_i.append(li)
+        cur_v, cur_i = torch.cat(out_v), torch.cat(out_i)
+        launches += 1
+        if launch.grid == 1:
+            slots = torch.arange(kp, dtype=torch.int64)
+            cur_i = torch.where(cur_i == pad, slots, cur_i)
+    return cur_v[:k], cur_i[:k].to(torch.int32), launches, flushes
 
 
 @pytest.mark.parametrize("n,k", [(0, 3), (5, 8), (2049, 256), (9000, 100),
                                  (600_000, 256)])
 def test_topk_survivor_passes_emulated(n, k):
-    """The relaunch design (survivors carry their source indices; pads
-    lose to real rows holding the worst value) equals the stable sort,
-    and the launch count is ``topk.passes``."""
+    """The block-select design (running threshold, buffer flushes, one
+    survivor block carrying source indices; pads lose to real rows
+    holding the worst value) equals the stable sort and the Pallas kernel
+    (interpret mode), and the launch count is ``topk.passes``."""
+    from repro.kernels import topk as jtopk
     from repro_torch.kernels import topk as kt
     rng = np.random.default_rng(n)
     x = rng.integers(-3, 3, n).astype(np.int32)
     x[rng.random(n) < 0.3] = I32MIN
-    v, i, launches = _emulate_topk_kernel(_t(x), k)
+    v, i, launches, _ = _emulate_topk_kernel(_t(x), k)
     want_v, want_i = ref.topk(_t(x), k)
     assert torch.equal(v, want_v) and torch.equal(i, want_i)
+    pallas = jtopk.topk_kernel(jnp.asarray(x), k, interpret=True)
+    assert_same(pallas[0], v, f"n={n} k={k} values")
+    assert_same(pallas[1], i, f"n={n} k={k} indices")
     assert launches == kt.passes(n, k)
-    assert kt.passes(59_986_052, 100) == 5  # R1's shape in chip_smoke.py
-    assert kt.passes(1 << 23, 128) == 4  # one streamed partition
+    assert kt.passes(59_986_052, 100) == 2  # R1's shape in chip_smoke.py
+    assert kt.passes(1 << 23, 128) == 2  # one streamed partition
+
+
+def _topk_pattern(name: str):
+    rng = np.random.default_rng(len(name))
+    n = 100_001  # three blocks of the range pass, a ragged tail
+    if name == "ascending":
+        return np.arange(n, dtype=np.int32) - 5, (128,)
+    if name == "descending":
+        return np.arange(n, 0, -1).astype(np.float32), (256,)
+    if name == "all_equal":
+        return np.full(n, -4, np.int32), (37,)
+    if name == "int32_min_heavy":
+        x = rng.integers(-2, 2, n).astype(np.int32)
+        x[rng.random(n) < 0.999] = I32MIN  # fewer real rows above it than k
+        return x, (256,)
+    if name == "n_below_k":
+        return rng.standard_normal(100).astype(np.float32), (128,)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("pattern", ["ascending", "descending", "all_equal",
+                                     "int32_min_heavy", "n_below_k"])
+def test_topk_emulated_patterns(pattern):
+    """The emulation equals ``ref.topk`` and the Pallas kernel (interpret
+    mode) on the inputs that stress the threshold: every key a survivor
+    (ascending: a flush every step), none after the first step
+    (descending, all equal), the worst value on most rows, n < k; the
+    answer does not depend on the grid cap or on a misaligned start."""
+    from repro.kernels import topk as jtopk
+    from repro_torch.kernels import topk as kt
+    x, ks = _topk_pattern(pattern)
+    n = x.shape[0]
+    for k in ks:
+        want = jtopk.topk_kernel(jnp.asarray(x), k, interpret=True)
+        got = {}
+        for cap, skew in ((528, 0), (2, 1), (7, 3)):
+            v, i, launches, flushes = _emulate_topk_kernel(_t(x), k, cap, skew)
+            assert launches == kt.passes(n, k, cap)
+            assert_same(want[0], v, f"{pattern} k={k} cap={cap} values")
+            assert_same(want[1], i, f"{pattern} k={k} cap={cap} indices")
+            got[cap] = flushes
+        wv, wi = ref.topk(_t(x), k)
+        assert torch.equal(v, wv) and torch.equal(i, wi)
+        if pattern == "ascending":  # a flush every other step at least
+            assert got[528] >= n // kt.CHUNK // 2
+        if pattern in ("descending", "all_equal"):
+            # a block flushes when its first full steps overflow the
+            # buffer (once more if its ragged keys came first), then never
+            blocks = sum(launch.grid for launch in kt.plan(n, k, 528))
+            assert got[528] <= 2 * blocks
+
+
+def test_topk_launch_plan():
+    """The range pass splits n keys into at most ``max_blocks`` contiguous
+    ranges of at least ``MIN_RANGE`` keys (each a multiple of 4, so each
+    starts 16-byte aligned when the input does) covering [0, n); more than
+    one block adds one survivor launch of one block over their lists."""
+    from repro_torch.kernels import topk as kt
+    for n in (0, 1, 4097, kt.MIN_RANGE, 2 * kt.MIN_RANGE - 1,
+              2 * kt.MIN_RANGE, 1_000_003, 1 << 23, 59_986_052):
+        for cap in (1, 2, 7, 264, 528):
+            launches = kt.plan(n, 100, cap)
+            first = launches[0]
+            assert first.rows == n and 1 <= first.grid <= cap
+            assert first.range_rows % 4 == 0
+            assert first.grid * first.range_rows >= n
+            assert (first.grid - 1) * first.range_rows < max(n, 1)
+            if first.grid > 1:
+                assert first.range_rows >= kt.MIN_RANGE
+            multi = n >= 2 * kt.MIN_RANGE and cap > 1
+            assert first.grid > 1 if multi else first.grid == 1
+            if multi:
+                assert launches[1] == kt.Launch(first.grid * 128, 1,
+                                                first.grid * 128)
+            assert len(launches) == kt.passes(n, 100, cap) == 1 + multi
+    # R1 on an H100 (132 SMs x BLOCKS_PER_SM): 264 ranges of 227,220 keys;
+    # at a cap of 528, 528 of 113,612
+    assert kt.plan(59_986_052, 100, 132 * kt.BLOCKS_PER_SM) == [
+        kt.Launch(59_986_052, 264, 227_220), kt.Launch(264 * 128, 1, 264 * 128)]
+    assert kt.plan(59_986_052, 100, 528) == [
+        kt.Launch(59_986_052, 528, 113_612), kt.Launch(528 * 128, 1, 528 * 128)]
+    assert kt.plan(1 << 23, 128, 528)[0] == kt.Launch(1 << 23, 256, 32_768)
 
 
 @pytest.mark.parametrize("bad", ["k_zero", "k_beyond", "dtype", "two_d",

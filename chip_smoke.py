@@ -23,10 +23,17 @@ first error:
    3M-key ascending, descending, tied and nearly-all-INT32_MIN inputs,
    three grid caps that must give the same bits, and views at offsets 1-3;
    for bucketize_kernel also query views at storage offset 1 with
-   nq % 4 != 0). Integer outputs, the decoders and topk must be equal (topk
-   values and indices, and bit-identical across two launches);
-   segment_sum must be within rtol=1e-4 of a float64 host sum and
-   bit-identical across two launches.
+   nq % 4 != 0; for bucketize_count_kernel sorted, random, clustered,
+   all-equal, NaN and out-of-range queries at 58,113, 97,532 and 2^23
+   boundaries, aligned and at offset 1, tiles at the window-or-splitter
+   edge, grid caps and splitter counts; for segment_sum_kernel G in
+   {1, 2, 16, 31, 32, 33, 512, 4096}, float32 and int32, ids in range,
+   mostly or all dropped, negative, a ragged tail). Integer outputs, the
+   decoders and topk must be equal (topk values and indices, and
+   bit-identical across two launches); int32 segment sums equal to the
+   plain version (wrapping ``index_add_``); float32 segment sums within
+   rtol=1e-4 of a float64 host sum; every segment sum bit-identical across
+   launches, grid caps and an offset view.
 3. Resident query phase: TPC-H-shaped LINEITEM (each query sorted by its
    Table 7 order) and ORDERS at the chosen scale, seed 2, ingested with
    ``CompressionConfig(plain_threshold=1_000)`` onto the card; Q1, Q3,
@@ -78,9 +85,21 @@ first error:
    back to back at grid caps of 1, 2 and 4 blocks an SM;
    ``bucketize_kernel`` and ``torch.searchsorted`` get their host time a
    call (host clock, no synchronisation inside a batch) and their device
-   time a call (``torch.profiler``).
-7. A ``{"kernels": [...]}`` summary line, then as the last line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+   time a call (``torch.profiler``). ``segment_sum_kernel`` is also timed
+   beside ``index_add_`` at G = 1 and 16 at 59,986,052 and 2^23 rows and
+   at G = 512 at 59,986,052, float32 and int32; ``bucketize_count_kernel``
+   beside ``torch.searchsorted`` at Q17's semi-join shape and at Q3's
+   shape with random queries.
+7. A ``launches`` line (per phase: launches, and a tally by shape class,
+   ``_build.SHAPES``), a ``{"kernels": [...]}`` summary line, then as the
+   last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+
+Other modes, for measurements (they stop early and print no result
+line): ``--kernel-bench`` times every kernel at the main path's shapes on
+seeded inputs; ``--queries Q3,Q17`` runs only those queries, resident
+and streamed (with ``--profile``, their profiles); ``--src DIR`` imports
+``repro_torch`` from another checkout's ``src`` (its kernels build
+there), so one call can time a parent tree and this one in turns.
 
 The script imports neither JAX nor the JAX package; the TPC-H generators
 below are copies of ``benchmarks/bench_tpch.py``'s.
@@ -130,6 +149,14 @@ OOC_QUERIES = ("Q1", "Q6", "Q17", "Q3")  # the out-of-core phase's queries
 # the ordering phase's queries and the LINEITEM sort order each reads
 RANKED_SOURCE = {"R1": "Q1", "R2": "Q6", "Q3r": "Q3"}
 ORDER_KERNELS = ("topk_kernel",)
+# bucketize_count_kernel's edge cases: boundary counts (just above the
+# shared-memory route, Q17's semi-join, Q3's join probe) and query patterns
+COUNT_NB = (58_113, 97_532, 1 << 23)
+COUNT_PATTERNS = ("sorted", "random", "clustered", "all_equal", "nan",
+                  "out_of_range")
+SEGSUM_GROUPS = (1, 2, 16, 31, 32, 33, 512, 4096)
+SEGSUM_PATTERNS = ("in_range", "mostly_dropped", "all_dropped", "negative",
+                   "ragged")
 
 # ---------------------------------------------------------------------------
 # TPC-H-shaped data (copies of benchmarks/bench_tpch.py's generators)
@@ -574,6 +601,100 @@ def topk_more_shapes(dev, k):
     return out
 
 
+def segsum_more_shapes(dev):
+    """``segment_sum_kernel`` beside ``index_add_`` at G = 1 and G = 16 at
+    59,986,052 and 2^23 rows, and at G = 512 at 59,986,052 (Q3's group
+    count), float32 and int32 (the COUNT sums): ids in range (at G = 1 all
+    0, an ungrouped aggregate's), so one ``index_add_`` computes the same
+    function. Each held against the plain version; per-launch and
+    back-to-back ms, and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_reduce import segment_sum_kernel
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    out = []
+    for n, groups in ((LINEITEM_ROWS[10.0], (1, 16, 512)), (1 << 23, (1, 16))):
+        for g in groups:
+            ids = (torch.zeros(n, dtype=torch.int32, device=dev) if g == 1
+                   else torch.randint(0, g, (n,), dtype=torch.int32,
+                                      device=dev, generator=gen))
+            for dtype in (torch.float32, torch.int32):
+                if dtype == torch.float32:
+                    v = torch.rand(n, device=dev, generator=gen) * 10
+                else:
+                    v = torch.randint(-1000, 1000, (n,), dtype=torch.int32,
+                                      device=dev, generator=gen)
+                got = segment_sum_kernel(v, ids, g)
+                if dtype == torch.int32:
+                    if not torch.equal(got, ref.ref_segment_reduce(v, ids, g)):
+                        raise AssertionError(f"segment_sum_kernel int32 G={g} "
+                                             f"n={n} differs from plain")
+                else:  # against the plain version in float64
+                    np.testing.assert_allclose(
+                        got.double().cpu().numpy(),
+                        ref.ref_segment_reduce(v.double(), ids, g).cpu().numpy(),
+                        rtol=1e-4, err_msg=f"segment_sum_kernel G={g} n={n}")
+                kern = lambda: segment_sum_kernel(v, ids, g)  # noqa: E731
+                lib = lambda: torch.zeros(  # noqa: E731
+                    g, dtype=v.dtype, device=dev).index_add_(0, ids, v)
+                k_ms, lib_ms = time_turns_ms(kern, lib)
+                out.append({"values": n, "G": g, "dtype": str(dtype),
+                            "ids": "all 0" if g == 1 else "random in range",
+                            "ms": k_ms,
+                            "ms_back_to_back": time_b2b_ms(kern, k_ms),
+                            "library": "index_add_", "library_ms": lib_ms,
+                            "library_ms_back_to_back": time_b2b_ms(lib, lib_ms),
+                            "bound_ms": bound_ms(8 * n + 4 * g, n)[0]})
+                del v, got
+            del ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def count_more_shapes(dev, q3_boundaries, q3_queries, part_keys):
+    """``bucketize_count_kernel`` beside ``torch.searchsorted`` at Q17's
+    semi-join shape (the 97,532 part keys against 59,986,052 partkeys
+    sorted, as the Q17-ordered table probes them) and at Q3's shape with
+    random queries (the main path's boundaries, queries drawn uniformly
+    over the range of its sorted ones). Each held against the plain
+    version; per-launch and back-to-back ms, and the bound."""
+    import torch
+    from repro_torch.kernels import bucketize as kb, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    n = LINEITEM_ROWS[10.0]
+    q17_b = torch.from_numpy(part_keys.astype(np.int32)).to(dev)
+    q17_q = torch.sort(torch.randint(0, n // 30, (n,), dtype=torch.int32,
+                                     device=dev, generator=gen)).values
+    lo, hi = int(q3_queries.min()), int(q3_queries.max())
+    q3_random = torch.randint(lo, hi + 1, (q3_queries.shape[0],),
+                              dtype=q3_queries.dtype, device=dev,
+                              generator=gen)
+    out = []
+    for what, b, q in (("Q17 semi-join, sorted", q17_b, q17_q),
+                       ("Q3 join probe, random", q3_boundaries, q3_random)):
+        for right in (True, False):
+            if not torch.equal(kb.bucketize_count_kernel(b, q, right),
+                               ref.ref_bucketize(b, q, right)):
+                raise AssertionError(f"bucketize_count_kernel: {what}")
+        kern = lambda: kb.bucketize_count_kernel(b, q, True)  # noqa: E731
+        lib = lambda: torch.searchsorted(  # noqa: E731
+            b, q, right=True, out_int32=True)
+        k_ms, lib_ms = time_turns_ms(kern, lib)
+        nb, nq = b.shape[0], q.shape[0]
+        out.append({"case": what, "boundaries": nb, "queries": nq,
+                    "plan": kb.count_plan(nb), "ms": k_ms,
+                    "ms_back_to_back": time_b2b_ms(kern, k_ms),
+                    "library": "torch.searchsorted", "library_ms": lib_ms,
+                    "library_ms_back_to_back": time_b2b_ms(lib, lib_ms),
+                    "bound_ms": bound_ms(4 * (nb + 2 * nq),
+                                         nq * _steps(nb))[0]})
+    del q17_b, q17_q, q3_random
+    torch.cuda.empty_cache()
+    return out
+
+
 def bound_ms(nbytes, nops):
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = nops / FP32_OPS_PER_S * 1e3
@@ -907,12 +1028,178 @@ def topk_edge_cases(dev):
     return cases
 
 
+def count_kernel_queries(rng, b, pattern, nq=300_001):
+    """Queries of one ``bucketize_count_kernel`` edge case over the sorted
+    boundaries ``b`` (host arrays, the boundaries' dtype)."""
+    hi = int(b[-1]) + 5
+    if pattern == "sorted":
+        q = np.sort(rng.integers(-5, hi, nq))
+    elif pattern == "random":
+        q = rng.integers(-5, hi, nq)
+    elif pattern == "clustered":  # sorted bursts of equal keys, a few strays
+        q = np.repeat(np.sort(rng.integers(0, hi, nq // 64 + 1)), 64)[:nq]
+        q[::1009] = rng.integers(0, hi, len(q[::1009]))
+    elif pattern == "all_equal":
+        q = np.full(nq, b[len(b) // 2])
+    elif pattern == "nan":  # a NaN-only tile and NaNs among numbers
+        q = rng.random(nq) * hi
+        q[rng.random(nq) < 0.01] = np.nan
+        q[:2048] = np.nan
+    elif pattern == "out_of_range":
+        q = np.where(rng.random(nq) < 0.5, -10, hi + 10)
+    else:
+        raise ValueError(pattern)
+    return q.astype(b.dtype)
+
+
+def count_window_edge(window, tile):
+    """Boundaries 0, 2, 4, ... and sorted queries whose first tile's min
+    and max counts lie exactly ``window`` apart (the window route's
+    largest staging), the second's ``window + 1`` (the splitter route),
+    the third's ``window - 1``, then a ragged tile."""
+    b = np.arange(100_000, dtype=np.int64) * 2
+    tiles = []
+    for t, span in enumerate((window, window + 1, window - 1, 7)):
+        a = 1000 + 5000 * t
+        q = np.sort(np.random.default_rng(t).integers(2 * a, 2 * (a + span),
+                                                       tile))
+        q[0], q[-1] = 2 * a, 2 * (a + span)
+        tiles.append(q if span != 7 else q[:333])
+    return b, np.concatenate(tiles)
+
+
+def count_kernel_edge_cases(dev):
+    """``bucketize_count_kernel`` (the tiled route) equal to
+    ``ref.ref_bucketize`` on sorted, random, clustered, all-equal, NaN and
+    out-of-range queries at each of ``COUNT_NB`` boundaries, as aligned
+    tensors and as views at offset 1 (scalar loads); at the window-or-
+    splitter edge; at grid caps and splitter counts that must not change
+    a count."""
+    import torch
+    from repro_torch.kernels import bucketize as kb, ref
+
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cases = 0
+
+    def same(b, q, what, **kw):
+        for right in (True, False):
+            got = kb.bucketize_count_kernel(b, q, right, **kw)
+            if not torch.equal(got, ref.ref_bucketize(b, q, right)):
+                raise AssertionError(f"bucketize_count_kernel: {what} "
+                                     f"right={right} {kw}")
+
+    for nb in COUNT_NB:
+        for dtype in (np.int32, np.float32):
+            b = np.sort(rng.integers(0, 4 * nb, nb)).astype(dtype)
+            bb = t(b)
+            for pattern in COUNT_PATTERNS:
+                if pattern == "nan" and dtype == np.int32:
+                    continue
+                q = t(count_kernel_queries(rng, b, pattern))
+                for off in (0, 1):
+                    same(bb, q[off:], f"nb={nb} {dtype.__name__} {pattern} "
+                         f"offset {off}")
+                    cases += 1
+    b, q = count_window_edge(kb.WINDOW, kb.COUNT_TILE)
+    for dtype in (np.int32, np.float32):
+        same(t(b.astype(dtype)), t(q.astype(dtype)), "window edge")
+        cases += 1
+    bb = t(np.sort(rng.integers(0, 1 << 26, 1 << 23)).astype(np.int32))
+    for pattern in ("sorted", "random"):
+        q = t(count_kernel_queries(rng, bb.cpu().numpy(), pattern, 2_000_003))
+        for kw in ({"max_blocks": 1}, {"max_blocks": 7},
+                   {"max_blocks": 1000}, {"max_splitters": 64},
+                   {"max_splitters": 1 << 14}):
+            same(bb, q, f"2^23 {pattern}", **kw)
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def segsum_case(rng, g, dtype, pattern, n=200_003):
+    """(values, ids) host arrays of one ``segment_sum_kernel`` edge case."""
+    if pattern == "ragged":  # several chunks, a ragged step and row
+        from repro_torch.kernels import segment_reduce as ks
+        n = 3 * ks.plan(g)[1] + 1029
+    ids = rng.integers(0, g, n).astype(np.int64)
+    if pattern == "mostly_dropped":
+        pick = rng.random(n)
+        ids[pick < 0.92] = g
+        ids[pick < 0.5] = rng.integers(-3 * g, 3 * g + 9,
+                                       int((pick < 0.5).sum()))
+    elif pattern == "all_dropped":
+        ids = np.where(rng.random(n) < 0.5, g, -1)
+    elif pattern == "negative":
+        ids[::3] = -1
+        ids[1::7] = -(2**31)
+    if dtype == np.int32:  # sums that wrap
+        v = rng.integers(-(2**31), 2**31 - 1, n, endpoint=True)
+    else:
+        v = rng.random(n) * 10
+    return v.astype(dtype), ids.astype(np.int32)
+
+
+def segsum_edge_cases(dev):
+    """``segment_sum_kernel`` at every G of ``SEGSUM_GROUPS``, float32 and
+    int32, on ``SEGSUM_PATTERNS``: int32 sums equal to the plain version
+    (wrapping ``index_add_``), float32 within rtol 1e-4 of a float64 sum;
+    bit-identical across two launches, two grid caps and a view at offset
+    1 (scalar loads, the same rows a thread)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_reduce import segment_sum_kernel
+
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cases = 0
+    for g in SEGSUM_GROUPS:
+        for dtype in (np.float32, np.int32):
+            for pattern in SEGSUM_PATTERNS:
+                v, ids = segsum_case(rng, g, dtype, pattern)
+                vt, it = t(v), t(ids)
+                what = f"segment_sum_kernel G={g} {dtype.__name__} {pattern}"
+                got = segment_sum_kernel(vt, it, g)
+                runs = [segment_sum_kernel(vt, it, g),
+                        segment_sum_kernel(vt, it, g, max_blocks=1),
+                        segment_sum_kernel(vt, it, g, max_blocks=7)]
+                # the same rows, from a buffer one element in: scalar loads
+                vo = torch.empty(len(v) + 1, dtype=vt.dtype, device=dev)
+                io = torch.empty(len(v) + 1, dtype=it.dtype, device=dev)
+                vo[1:].copy_(vt)
+                io[1:].copy_(it)
+                runs.append(segment_sum_kernel(vo[1:], io[1:], g))
+                bits = got.view(torch.int32)
+                if not all(torch.equal(bits, r.view(torch.int32))
+                           for r in runs):
+                    raise AssertionError(f"{what}: not bit-identical")
+                plain = ref.ref_segment_reduce(vt, it, g)
+                if dtype == np.int32:
+                    if not torch.equal(got, plain):
+                        raise AssertionError(f"{what}: differs from plain")
+                    if pattern == "in_range" and not torch.equal(
+                            got, torch.zeros(g, dtype=torch.int32,
+                                             device=dev).index_add_(0, it, vt)):
+                        raise AssertionError(f"{what}: differs from "
+                                             "index_add_")
+                else:
+                    keep = (ids >= 0) & (ids < g)
+                    want = np.zeros(g, np.float64)
+                    np.add.at(want, ids[keep], v[keep].astype(np.float64))
+                    np.testing.assert_allclose(got.cpu().numpy(), want,
+                                               rtol=1e-4, atol=1e-2,
+                                               err_msg=what)
+                cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: every kernel at the main path's largest inputs
 # ---------------------------------------------------------------------------
 
 
-def kernel_timing(launches, largest):
+def kernel_timing(launches, largest, part_keys):
     import torch
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import bucketize as kb
@@ -943,6 +1230,10 @@ def kernel_timing(launches, largest):
             lib_fn = lambda: torch.searchsorted(  # noqa: E731
                 b, q, right=right, out_int32=True)
             lib_what = "torch.searchsorted"
+            if name == "bucketize_count_kernel":
+                shape["plan"] = kb.count_plan(nb)
+                shape["more_shapes"] = count_more_shapes(q.device, b, q,
+                                                         part_keys)
             if name == "bucketize_kernel":  # where a launch's time goes
                 shape["host_us"] = {"kernel": host_us(kern_fn),
                                     lib_what: host_us(lib_fn)}
@@ -1062,22 +1353,32 @@ def kernel_timing(launches, largest):
             if not torch.equal(got, segment_sum_kernel(v, ids, g)):
                 raise AssertionError(f"{name} not deterministic")
             plain = ref.ref_segment_reduce(v, ids, g)
-            ids_h, v_h = ids.cpu().numpy(), v.cpu().numpy().astype(np.float64)
+            ids_h = ids.cpu().numpy()
             keep = (ids_h >= 0) & (ids_h < g)
-            want = np.zeros(g, np.float64)
-            np.add.at(want, ids_h[keep], v_h[keep])
-            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
-                                       atol=1e-3, err_msg=name)
-            err = float((got - plain).abs().max())
+            if v.dtype == torch.int32:  # exact, wrapping as the plain sum
+                if not torch.equal(got, plain):
+                    raise AssertionError(f"{name} int32 differs from plain")
+                err = 0.0
+            else:
+                v_h = v.cpu().numpy().astype(np.float64)
+                want = np.zeros(g, np.float64)
+                np.add.at(want, ids_h[keep], v_h[keep])
+                np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                           atol=1e-3, err_msg=name)
+                # against the float64 sum: a float32 plain sum into few
+                # slots stalls at 2^24
+                err = float(np.abs(got.cpu().numpy() - want).max())
             n = v.shape[0]
-            shape = {"values": n, "num_segments": g}
+            shape = {"values": n, "num_segments": g, "dtype": str(v.dtype),
+                     "dropped_ids": int((~keep).sum())}
             nbytes, nops = 8 * n + 4 * g, n
             kern_fn = lambda: segment_sum_kernel(v, ids, g)  # noqa: E731
             plain_fn = lambda: ref.ref_segment_reduce(v, ids, g)  # noqa: E731
             if bool(keep.all()):  # one index_add_ computes the same function
                 lib_fn = lambda: torch.zeros(  # noqa: E731
-                    g, device=v.device).index_add_(0, ids, v)
+                    g, dtype=v.dtype, device=v.device).index_add_(0, ids, v)
                 lib_what = "index_add_"
+            shape["more_shapes"] = segsum_more_shapes(v.device)
         lib_ms = lib_b2b = None
         if lib_fn is not None:  # kernel and library call in turns
             k_ms, lib_ms = time_turns_ms(kern_fn, lib_fn)
@@ -1101,6 +1402,126 @@ def kernel_timing(launches, largest):
                           "launches": launches[name],
                           "max_abs_err": err}), flush=True)
         rows.append(row)
+    return rows
+
+
+def bench_inputs(dev):
+    """Seeded inputs, made on the card, at the main path's shapes (SF10):
+    ``[(kernel, label, call, plain, exact, bytes, ops)]``. Only calls that
+    the wrappers of earlier trees take too (``--src``), plus the int32
+    segment sums where the wrapper has them."""
+    import torch
+    from repro_torch.kernels import bucketize as kb, ref
+    from repro_torch.kernels import segment_reduce as ks
+    from repro_torch.kernels import topk as kt
+    from repro_torch.kernels import unpack as ku
+    from repro_torch.kernels.rle_decode import rle_decode_kernel
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    n = LINEITEM_ROWS[10.0]
+    i32 = torch.int32
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, (size,), dtype=i32, device=dev,
+                             generator=gen)
+
+    out = []
+    b = torch.sort(ints(-50, 50, 550)).values
+    q = ints(-60, 60, 1_406_900)
+    out.append(("bucketize_kernel", "550 x 1,406,900", lambda: kb.bucketize_kernel(b, q), lambda: ref.ref_bucketize(b, q), True, 4 * (550 + 2 * q.shape[0]), q.shape[0] * _steps(550)))  # noqa: E501
+    # Q3's join probe: ORDERS keys passing orderdate < 180 (about 49%),
+    # sentinel-padded to 2^23; LINEITEM orderkeys sorted, and random
+    keys = torch.arange(n // 4, dtype=i32, device=dev)
+    keys = keys[torch.rand(n // 4, device=dev, generator=gen) < 180 / 366]
+    q3_b = torch.full((1 << 23,), 2**31 - 1, dtype=i32, device=dev)
+    q3_b[:keys.shape[0]] = keys
+    q3_sorted = torch.sort(ints(0, n // 4, n)).values
+    q3_random = ints(0, n // 4, n)
+    q17_b = torch.unique(ints(0, n // 30, n // 600))
+    q17_q = torch.sort(ints(0, n // 30, n)).values
+    for label, bb, qq in (("Q3 2^23 x 59,986,052 sorted", q3_b, q3_sorted),
+                          ("Q3 2^23 x 59,986,052 random", q3_b, q3_random),
+                          (f"Q17 {q17_b.shape[0]:,} x 59,986,052 sorted",
+                           q17_b, q17_q)):
+        out.append(("bucketize_count_kernel", label,
+                    lambda bb=bb, qq=qq: kb.bucketize_count_kernel(bb, qq),
+                    lambda bb=bb, qq=qq: ref.ref_bucketize(bb, qq), True,
+                    4 * (bb.shape[0] + 2 * qq.shape[0]),
+                    qq.shape[0] * _steps(bb.shape[0])))
+    starts = torch.sort(torch.randperm(n, device=dev, generator=gen)[:550]
+                        ).values.to(i32)
+    starts[0] = 0
+    ends = torch.cat([starts[1:] - 1, torch.tensor([n - 1], device=dev,
+                                                   dtype=i32)])
+    vals = ints(0, 100, 550)
+    cnt = torch.tensor(550, dtype=i32, device=dev)
+    out.append(("rle_decode_kernel", "capacity 550 x 59,986,052", lambda: rle_decode_kernel(vals, starts, ends, cnt, n), lambda: ref.ref_rle_decode(vals, starts, ends, cnt, n), True, 12 * 550 + 4 + 4 * n, n * _steps(550)))  # noqa: E501
+    int32_sums = hasattr(ks, "plan")  # the int32 instantiation
+    for rows, groups in ((n, (1, 16, 512)), (1 << 23, (1, 16))):
+        for g in groups:
+            ids = (torch.zeros(rows, dtype=i32, device=dev) if g == 1
+                   else ints(0, g + 1, rows))  # id g: dropped
+            for dtype in (torch.float32, torch.int32):
+                if dtype == torch.int32 and not int32_sums:
+                    continue
+                v = (torch.rand(rows, device=dev, generator=gen)
+                     if dtype == torch.float32 else ints(0, 2, rows))
+                # float sums are held against the plain version in
+                # float64 (a float32 index_add_ into one slot stalls at 2^24)
+                out.append(("segment_sum_kernel",
+                            f"{rows:,} x G={g} {str(dtype)[6:]}",
+                            lambda v=v, ids=ids, g=g: ks.segment_sum_kernel(
+                                v, ids, g),
+                            lambda v=v, ids=ids, g=g: ref.ref_segment_reduce(
+                                v if v.dtype == torch.int32 else v.double(),
+                                ids, g), dtype == torch.int32,
+                            8 * rows + 4 * g, rows))
+    words24 = ints(-(2**31), 2**31 - 1, ku.nwords_for(1 << 23, 24))
+    out.append(("unpack_kernel", "2^23 x 24 bits", lambda: ku.unpack_kernel(words24, 24, 0, 1 << 23), lambda: ref.ref_unpack(words24, 24, 0, 1 << 23), True, 4 * words24.shape[0] + 4 * (1 << 23), 1 << 23))  # noqa: E501
+    pb = torch.sort(ints(0, 1 << 21, 97_533)).values
+    words21 = ints(-(2**31), 2**31 - 1, ku.nwords_for(524_288, 21))
+    out.append(("bucketize_packed_kernel", "97,533 x 524,288 x 21 bits", lambda: ku.bucketize_packed_kernel(pb, words21, 21, 0, 524_288), lambda: ref.ref_bucketize_packed(pb, words21, 21, 0, 524_288), True, 4 * (97_533 + words21.shape[0] + 524_288), 524_288 * _steps(97_533)))  # noqa: E501
+    rows = 1 << 23
+    pst = torch.sort(torch.randperm(rows, device=dev, generator=gen)[:128]
+                     ).values.to(i32)
+    pst[0] = 0
+    pen = torch.cat([pst[1:] - 1, torch.tensor([rows - 1], device=dev,
+                                               dtype=i32)])
+    words4 = ints(-(2**31), 2**31 - 1, ku.nwords_for(128, 4))
+    pcnt = torch.tensor(128, dtype=i32, device=dev)
+    out.append(("rle_decode_packed_kernel", "capacity 128 x 4 bits x 2^23", lambda: ku.rle_decode_packed_kernel(words4, 4, 0, 128, pst, pen, pcnt, rows), lambda: ref.ref_rle_decode_packed(words4, 4, 0, 128, pst, pen, pcnt, rows), True, 4 * words4.shape[0] + 8 * 128 + 4 + 4 * rows, rows * _steps(128)))  # noqa: E501
+    keys = ints(-(2**31), 2**31 - 1, n)
+    out.append(("topk_kernel", "59,986,052 int32, k=128", lambda: kt.topk_kernel(keys, 128), lambda: ref.topk(keys, 128), True, 4 * n + 8 * 128, n))  # noqa: E501
+    return out
+
+
+def kernel_bench(dev):
+    """Every kernel at the main path's shapes (``bench_inputs``): each
+    call held against its plain version, then its per-launch ms (events
+    around one call, median of 30) and back-to-back ms, beside the bound.
+    One JSON line a shape; the list is returned."""
+    import torch
+    rows = []
+    for name, label, call, plain, exact, nbytes, nops in bench_inputs(dev):
+        got, want = call(), plain()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [
+            (got, want)]
+        for g, w in pairs:
+            if exact and not torch.equal(g, w):
+                raise AssertionError(f"{name} {label}: differs from plain")
+            if not exact:
+                np.testing.assert_allclose(g.double().cpu().numpy(),
+                                           w.double().cpu().numpy(),
+                                           rtol=1e-4, atol=1e-2,
+                                           err_msg=f"{name} {label}")
+        ms = time_ms(call, iters=30)
+        rec = {"bench": name, "shape": label, "ms": ms,
+               "ms_back_to_back": time_b2b_ms(call, ms),
+               "bound_ms": bound_ms(nbytes, nops)[0]}
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1139,7 +1560,8 @@ def profile_run(name, q, out_dir):
             "top_ops_device_ms": ops[:6]}
 
 
-def query_phase(sf, dev, runs, profile_dir=None):
+def query_phase(sf, dev, runs, profile_dir=None,
+                names=("Q1", "Q3", "Q6", "Q17", "Q19")):
     """The resident path. Returns its per-query records and what the
     later phases reuse: the LINEITEM arrays of ``OOC_QUERIES``, the oracles
     and resident answers, ORDERS and the semi-join keys, and the resident
@@ -1167,6 +1589,8 @@ def query_phase(sf, dev, runs, profile_dir=None):
     for name in ("Q1", "Q3", "Q6", "Q17", "Q19"):
         t0 = time.perf_counter()
         data = make_lineitem(rng, n, order=SORT_ORDERS[name], device=dev)
+        if name not in names:  # drawn all the same: the others' data stay
+            continue
         gen_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1259,7 +1683,8 @@ def chaos_plan(seed, visited):
     return plan.oom(int(chosen[-1]), site="compute")
 
 
-def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None):
+def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None,
+                    names=OOC_QUERIES):
     """Stream ``OOC_QUERIES`` over packed (and, for comparison, unpacked)
     host partitions; returns the per-query records. With ``profile_dir``,
     one more depth-2 run of each query goes under ``torch.profiler``."""
@@ -1271,7 +1696,7 @@ def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None):
     cfg = compress.CompressionConfig(plain_threshold=1_000)
     orders_table, part_keys = shared["orders_table"], shared["part_keys"]
     per_query = {}
-    for name in OOC_QUERIES:
+    for name in (q for q in OOC_QUERIES if q in names):
         data = shared["data"][name]
         if name not in RANKED_SOURCE.values():
             del shared["data"][name]
@@ -1513,7 +1938,19 @@ def main(argv=None) -> int:
                         help="directory for a torch.profiler table of one "
                         "more warm run of each query, resident and streamed "
                         "(its launches are not counted in launches_per_run)")
+    parser.add_argument("--queries", default=None,
+                        help="comma-separated subset of Q1,Q3,Q6,Q17,Q19: "
+                        "run only those, resident and streamed (with "
+                        "--profile: their profiles), and stop")
+    parser.add_argument("--kernel-bench", action="store_true",
+                        help="only time every kernel at the main path's "
+                        "shapes on seeded inputs, and stop")
+    parser.add_argument("--src", type=Path, default=None,
+                        help="import repro_torch from this src directory "
+                        "(another checkout's: its kernels build there)")
     args = parser.parse_args(argv)
+    if args.src is not None:
+        sys.path.insert(0, str(args.src.resolve()))
 
     import torch
     if not torch.cuda.is_available():
@@ -1538,7 +1975,23 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}", flush=True)
 
-    cases = (kernel_edge_cases(dev) + packed_edge_cases(dev)
+    import repro_torch
+    print(f"repro_torch from {Path(repro_torch.__file__).parent}", flush=True)
+    if args.kernel_bench:
+        kernel_bench(dev)
+        print(card, flush=True)
+        return 0
+    if args.queries:
+        names = tuple(args.queries.split(","))
+        per_query, shared = query_phase(args.sf, dev, args.runs, args.profile,
+                                        names)
+        outofcore_phase(dev, shared, pinned_h2d_gbps(dev), args.seed,
+                        args.profile, names)
+        print(card, flush=True)
+        return 0
+
+    cases = (kernel_edge_cases(dev) + count_kernel_edge_cases(dev)
+             + segsum_edge_cases(dev) + packed_edge_cases(dev)
              + topk_edge_cases(dev))
     print(f"kernel checks: {cases} edge cases agree with the plain versions",
           flush=True)
@@ -1547,6 +2000,7 @@ def main(argv=None) -> int:
     _build.reset_launches()
     per_query, shared = query_phase(args.sf, dev, args.runs, args.profile)
     resident = dict(_build.LAUNCHES)
+    shapes = {"resident": {k: dict(v) for k, v in _build.SHAPES.items()}}
     missing = [k for k in RESIDENT_KERNELS if resident[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the resident path: "
@@ -1557,6 +2011,7 @@ def main(argv=None) -> int:
     _build.reset_launches()
     ooc = outofcore_phase(dev, shared, h2d_gbps, args.seed, args.profile)
     streamed = dict(_build.LAUNCHES)
+    shapes["out_of_core"] = {k: dict(v) for k, v in _build.SHAPES.items()}
     missing = [k for k in PACKED_KERNELS if streamed[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the out-of-core "
@@ -1564,19 +2019,21 @@ def main(argv=None) -> int:
     _build.reset_launches()
     ranked = ordering_phase(dev, shared, args.runs, args.profile)
     ordering = dict(_build.LAUNCHES)
+    shapes["ordering"] = {k: dict(v) for k, v in _build.SHAPES.items()}
     missing = [k for k in ORDER_KERNELS if ordering[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the ordering path: "
                              f"{missing}")
     print(json.dumps({"launches": {"resident": resident,
                                    "out_of_core": streamed,
-                                   "ordering": ordering}}), flush=True)
+                                   "ordering": ordering},
+                      "launch_shapes": shapes}), flush=True)
     launches = {k: resident[k] + streamed[k] + ordering[k]
                 for k in _build.KERNELS}
     # the inputs the main path gave each kernel; no capture while timing
     largest = dict(_build.LARGEST)
     _build.capture(False)
-    rows = kernel_timing(launches, largest)
+    rows = kernel_timing(launches, largest, shared["part_keys"])
     print(json.dumps({"card": card, "queries": {
         k: {"warm_median_ms": v["warm_median_ms"], "ingest_s": v["ingest_s"]}
         for k, v in per_query.items()}, "out_of_core": {

@@ -120,8 +120,12 @@ class ColumnStats:
 
 
 def _run_bounds(values: np.ndarray):
-    """Starts and inclusive ends of the runs of equal consecutive values."""
+    """Starts and inclusive ends of the runs of equal consecutive values
+    (none for an empty column: zero rows encode to zero runs)."""
     n = len(values)
+    if n == 0:
+        empty = np.zeros(0, np.int64)
+        return empty, empty
     change = np.empty(n, dtype=bool)
     change[0] = True
     np.not_equal(values[1:], values[:-1], out=change[1:])

@@ -26,6 +26,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.kernels.ref import SPARE_SLOTS, drop_slots
 
 POS_DTYPE = torch.int32
 
@@ -65,14 +66,14 @@ def scatter_drop(out: torch.Tensor, idx: torch.Tensor, src,
                  how: str = "set") -> torch.Tensor:
     """``out.at[idx].<how>(src, mode="drop")`` as a new tensor.
 
-    Out-of-range updates land in one spare slot that is sliced off.
-    ``how`` is set / add / amin / amax."""
+    Out-of-range updates land in a block of spare slots, chosen by
+    position (``ref.drop_slots``), that is sliced off. ``how`` is set /
+    add / amin / amax."""
     size = out.shape[0]
-    idx = _normalized(idx, size)
-    idx = torch.where((idx >= 0) & (idx < size), idx, size)
+    idx = drop_slots(_normalized(idx, size), size)
     src = torch.as_tensor(src, dtype=out.dtype, device=out.device)
     src = src.expand(idx.shape) if src.dim() == 0 else src.to(out.dtype)
-    ext = torch.cat([out, out.new_zeros((1,))])
+    ext = torch.cat([out, out.new_zeros((SPARE_SLOTS,))])
     if how == "set":
         ext.scatter_(0, idx, src)
     elif how == "add":

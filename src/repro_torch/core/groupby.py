@@ -89,6 +89,14 @@ def _zero_invalid(valid, x):
     return torch.where(valid, x, torch.zeros_like(x))
 
 
+def _gather_or_zero(values, idx):
+    """``values[idx]``; zeros when ``values`` is empty (a zero-row column
+    has no segments, so every group slot is invalid)."""
+    if values.shape[0] == 0:
+        return torch.zeros(idx.shape, dtype=values.dtype, device=values.device)
+    return values[idx]
+
+
 def align_columns(cols: Dict[str, object], mask=None) -> SegmentView:
     """Bring heterogeneously encoded columns onto one segmentation (§6).
 
@@ -348,9 +356,10 @@ def groupby_aggregate(
             else:
                 raise ValueError(a)
 
-    rep_safe = torch.clamp(rep, 0, gid.shape[0] - 1)
+    rep_safe = torch.clamp(rep, 0, max(gid.shape[0] - 1, 0))
     gvalid = valid_slots(num_groups, num_groups_cap)
-    keys = {name: _zero_invalid(gvalid, view.values[name][rep_safe])
+    keys = {name: _zero_invalid(gvalid, _gather_or_zero(view.values[name],
+                                                        rep_safe))
             for name in group_names}
     return GroupByResult(keys=keys, aggs=out, num_groups=num_groups,
                          valid=gvalid)

@@ -12,9 +12,11 @@ Nothing here runs at import: the tests import every module on machines
 without ``nvcc``.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
-and nowhere else. With ``capture(True)``, each wrapper also keeps the
-inputs of its largest launch (``LARGEST``), so a caller can replay the
-main path's real shapes against the plain versions.
+and nowhere else, and one to ``SHAPES[name][cls]``, a tally by shape
+class: rows, queries and boundaries rounded up to a power of two, G and
+bit widths exact (``pow2``). With ``capture(True)``, each wrapper also
+keeps the inputs of its largest launch (``LARGEST``), so a caller can
+replay the main path's real shapes against the plain versions.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ KERNELS = ("bucketize_kernel", "bucketize_count_kernel", "rle_decode_kernel",
            "segment_sum_kernel", "unpack_kernel", "bucketize_packed_kernel",
            "rle_decode_packed_kernel", "topk_kernel")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+SHAPES: Dict[str, Dict[str, int]] = {name: {} for name in KERNELS}
 LARGEST: Dict[str, dict] = {}
 BUILD_INFO: Dict[str, object] = {}
 
@@ -51,6 +54,12 @@ _CAPTURE = False
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+        SHAPES[name] = {}
+
+
+def pow2(n: int) -> str:
+    """``n`` rounded up to a power of two, as ``"2^k"``."""
+    return f"2^{max(int(n) - 1, 0).bit_length()}"
 
 
 def capture(on: bool) -> None:
@@ -61,9 +70,12 @@ def capture(on: bool) -> None:
         LARGEST.clear()
 
 
-def count_launch(name: str, work: int, **inputs) -> None:
-    """Book one launch of kernel ``name`` (called right after the launch)."""
+def count_launch(name: str, work: int, cls: str, **inputs) -> None:
+    """Book one launch of kernel ``name`` of shape class ``cls`` (called
+    right after the launch)."""
     LAUNCHES[name] += 1
+    tally = SHAPES[name]
+    tally[cls] = tally.get(cls, 0) + 1
     if _CAPTURE and work >= LARGEST.get(name, {}).get("work", -1):
         LARGEST[name] = dict(inputs, work=work)
 
@@ -131,6 +143,18 @@ def library(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()[source]))
             _LIBS[source] = lib
         return lib
+
+
+def run_on(index: int, fn, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` for the card ``index`` on its
+    current stream, read raw, without entering a device context unless
+    ``index`` is not the current card (the launch path of every wrapper:
+    the entries are bound once, at first use)."""
+    import torch
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(lib: ctypes.CDLL, err: int, name: str, error_string: str) -> None:

@@ -13,10 +13,16 @@ Two routes, ported from the two Pallas kernels of
    aligned) through four interleaved window searches; ``launch_plan``
    picks the load width and whether the grid is persistent, and the C
    entry sizes the grid.
-2. ``bucketize_count_kernel`` — any boundary count: the same bisection
-   through L2. (The TPU kernel of that name tiles an O(Q·B) count because
-   VMEM bounds the boundary block; Hopper has no such ceiling, so the
-   port computes the same counts in O(Q log B).)
+2. ``bucketize_count_kernel`` — any boundary count. (The TPU kernel of
+   that name tiles an O(Q·B) count because VMEM bounds the boundary
+   block; Hopper has no such ceiling, so the port computes the same
+   counts in O(Q log B).) Persistent blocks stage every 2^s-th boundary
+   (at most ``SPLITTERS``) in shared memory, bound the counts of each
+   tile of ``COUNT_TILE`` queries by the counts of its min and max, and
+   then either search a window of at most ``WINDOW`` boundaries staged in
+   shared memory (the sorted probes of the main path) or finish the last
+   s levels of each query through L2 (any other input). ``count_plan``
+   gives s.
 
 Both return int32 counts equal to ``ref.ref_bucketize``, which is the
 plain version the wrappers run for CPU tensors. Wrappers check device,
@@ -39,9 +45,13 @@ MAX_SMEM_BOUNDARIES = 232_448 // 4  # 58,112 int32/float32 boundaries
 THREADS = 256  # threads a block of the shared-memory route
 PER_THREAD = 4  # queries a thread: one 16-byte load when aligned
 TILE = THREADS * PER_THREAD  # queries a block takes per step
+SPLITTERS = 4096  # boundaries the tiled route stages a block, at most
+WINDOW = 2048  # boundaries a tile's window may stage
+COUNT_TILE = 2 * TILE  # queries a tile of the tiled route: eight a thread
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 _SOURCE = "bucketize.cu"
 _ENTRY: Optional[Tuple[ctypes.CDLL, object]] = None
+_COUNT_ENTRY: Optional[Tuple[ctypes.CDLL, object]] = None
 
 # The C entry's flag bits of the shared-memory route's plan. VECTORIZED: a
 # thread loads its four queries of a TILE-query tile with one 16-byte load
@@ -60,6 +70,16 @@ def launch_plan(nb: int, queries_ptr: int, out_ptr: int) -> int:
             | (PERSISTENT if nb > TILE else 0))
 
 
+def count_plan(nb: int, max_splitters: int = SPLITTERS) -> Tuple[int, int]:
+    """``(s, nsplit)`` of the tiled route: the least s for which every
+    2^s-th of ``nb`` boundaries fits ``max_splitters`` staged entries,
+    and their number (the C entry computes the same)."""
+    s = 0
+    while ((nb - 1) >> s) + 1 > max_splitters:
+        s += 1
+    return s, ((nb - 1) >> s) + 1
+
+
 def _entry():
     global _ENTRY
     if _ENTRY is None:
@@ -71,6 +91,18 @@ def _entry():
         fn.restype = ctypes.c_int
         _ENTRY = (lib, fn)
     return _ENTRY
+
+
+def _count_entry():
+    global _COUNT_ENTRY
+    if _COUNT_ENTRY is None:
+        lib = _build.library(_SOURCE)
+        fn = lib.repro_bucketize_count
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn.argtypes = [p, i64, p, i64, p, i32, i64, i32, p]
+        fn.restype = ctypes.c_int
+        _COUNT_ENTRY = (lib, fn)
+    return _COUNT_ENTRY
 
 
 def _check(boundaries: torch.Tensor, queries: torch.Tensor) -> bool:
@@ -115,35 +147,38 @@ def _explain(boundaries, queries) -> None:
                      f"devices ({boundaries.device} vs {queries.device})")
 
 
-def _launch(name: str, boundaries, queries, right: bool,
-            global_route: bool):
-    """Allocate the counts and launch on the queries' card, on its current
-    stream (a device context is entered only for another card than the
-    current one)."""
+def _launch(name: str, entry, boundaries, queries, right: bool, plan,
+            *extra):
+    """Allocate the counts and launch ``name`` through ``entry`` (the
+    library and its bound C function) on the queries' card and current
+    stream; ``plan(nb, queries_ptr, out_ptr)`` gives the route's flag
+    bits, ``extra`` the entry's trailing arguments."""
     nb, nq = boundaries.shape[0], queries.shape[0]
     out = torch.empty_like(queries, dtype=torch.int32)
     if nq == 0:
         return out
     if nb == 0:
         return out.zero_()
-    lib, fn = _ENTRY or _entry()
+    lib, fn = entry
     q_ptr, out_ptr = queries.data_ptr(), out.data_ptr()
-    # the C entry's flag bits: float32, right, global or the plan's
+    # the C entry's flag bits: float32, right, and the plan's
     flags = (_DTYPE_CODE[queries.dtype] | (2 if right else 0)
-             | (4 if global_route else launch_plan(nb, q_ptr, out_ptr)))
-    index = queries.get_device()
-    if index == torch._C._cuda_getDevice():
-        err = fn(boundaries.data_ptr(), nb, q_ptr, nq, out_ptr, flags,
-                 torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = fn(boundaries.data_ptr(), nb, q_ptr, nq, out_ptr, flags,
-                     torch._C._cuda_getCurrentRawStream(index))
+             | plan(nb, q_ptr, out_ptr))
+    err = _build.run_on(queries.get_device(), fn, boundaries.data_ptr(), nb,
+                        q_ptr, nq, out_ptr, flags, *extra)
     if err:
         _build.check(lib, err, name, "repro_bucketize_error_string")
-    _build.count_launch(name, nb + nq, boundaries=boundaries, queries=queries,
+    _build.count_launch(name, nb + nq,
+                        f"q={_build.pow2(nq)} nb={_build.pow2(nb)}",
+                        boundaries=boundaries, queries=queries,
                         right=bool(right))
     return out
+
+
+def _aligned(nb: int, queries_ptr: int, out_ptr: int) -> int:
+    """The tiled route's plan: ``VECTORIZED`` when both are 16-byte
+    aligned."""
+    return VECTORIZED if (queries_ptr | out_ptr) & 15 == 0 else 0
 
 
 def bucketize_kernel(boundaries: torch.Tensor, queries: torch.Tensor,
@@ -157,13 +192,21 @@ def bucketize_kernel(boundaries: torch.Tensor, queries: torch.Tensor,
             f"bucketize_kernel: {boundaries.shape[0]} boundaries exceed one "
             f"block's shared memory ({MAX_SMEM_BOUNDARIES}); use "
             "bucketize_count_kernel")
-    return _launch("bucketize_kernel", boundaries, queries, right, False)
+    return _launch("bucketize_kernel", _ENTRY or _entry(), boundaries,
+                   queries, right, launch_plan)
 
 
 def bucketize_count_kernel(boundaries: torch.Tensor, queries: torch.Tensor,
-                           right: bool = True) -> torch.Tensor:
-    """Global-memory route for any boundary count (no sentinel padding
-    needed) -> int32 counts."""
+                           right: bool = True,
+                           max_blocks: Optional[int] = None,
+                           max_splitters: int = SPLITTERS) -> torch.Tensor:
+    """Tiled route for any boundary count (no sentinel padding needed) ->
+    int32 counts. ``max_blocks`` caps the persistent grid and
+    ``max_splitters`` the boundaries a block stages (fewer make the
+    searches of longer boundary lists, several L2 rounds, reachable at a
+    size a test affords); neither changes a count."""
     if not _check(boundaries, queries):
         return ref.ref_bucketize(boundaries, queries, right)
-    return _launch("bucketize_count_kernel", boundaries, queries, right, True)
+    return _launch("bucketize_count_kernel", _COUNT_ENTRY or _count_entry(),
+                   boundaries, queries, right, _aligned,
+                   int(max_blocks or 0), int(max_splitters))

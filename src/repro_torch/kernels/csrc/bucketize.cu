@@ -11,7 +11,8 @@
 // What bounds it on the H100: bytes. The least work is one read of each query
 // and each boundary and one write of each count, 4 bytes apiece, at 3.35 TB/s.
 // The bisection does O(Q log B) further reads, but they hit shared memory or
-// the 50 MB L2, never device memory again.
+// the 50 MB L2 (queries and counts stream past it with evict-first loads and
+// stores), never device memory again.
 //
 // Design:
 //   * smem route (B <= 58,112, the 227 KB a block may opt in to): blocks of
@@ -34,17 +35,37 @@
 //   * The host side of a launch is short: kernels/bucketize.py binds the entry
 //     once and plans the route (launch_plan: load width, persistent or not);
 //     the C entry sizes the grid and launches.
-//   * global route (any B): there is no VMEM ceiling to tile around on Hopper,
-//     so the TPU's O(Q*B) tiled count becomes the same O(Q log B) bisection,
-//     reading the boundaries through the read-only path (__ldg) from L2. The
-//     kernel masks the ragged end of the query range itself and needs no
-//     sentinel padding of the boundaries.
+//   * tiled route (bucketize_count_kernel, any B): the TPU's O(Q*B) tiled
+//     count has no VMEM ceiling to work around here; the count of a query is
+//     monotone in the query, and both callers on the main path (the join
+//     probe and the semi-join, resident and streamed) probe with queries
+//     sorted by the table's order. A persistent grid of 256-thread blocks
+//     takes contiguous runs of 2048-query tiles, two groups of four queries
+//     a thread (one 16-byte load a group when aligned; the next tile's loads
+//     go out before this tile's searches), so a tile's barriers and bound
+//     searches are paid once for 2048 queries. Each block stages every 2^s-th boundary (at most
+//     `max_splitters`, 4096 by default: 16 KB) in shared memory once. Per
+//     tile, the block reduces the queries' min and max (NaN above every
+//     number) and two warps count them: a bisection over the staged
+//     splitters, then 64 probes a round through L2 inside the splitter's
+//     block of 2^s boundaries (two rounds at 2^23 boundaries). Every count of
+//     the tile lies in [lo, hi]:
+//       - window: when hi - lo <= 2048 (sorted queries: about 250 boundaries
+//         a tile in Q3's join probe, about 4 in Q17's semi-join), the block
+//         stages boundaries[lo, hi) with coalesced loads and runs bisect4
+//         there, adding lo;
+//       - splitter: otherwise (random queries), each thread bisects its four
+//         queries over the staged splitters (bisect4), then finishes the last
+//         s levels through L2, the four searches interleaved.
+//     Either way a count is exact, so the grid does not change the output.
 //   * float32 compares as torch.searchsorted does, so a NaN query counts
 //     every boundary (NaN sorts above every number, as in jnp.searchsorted).
 // Each launch goes on the caller's stream, allocates nothing, and returns
 // cudaGetLastError(). Offsets are 64-bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bisect.cuh"
 
@@ -53,11 +74,15 @@ namespace {
 using repro::bisect;
 using repro::bisect4;
 using repro::bisect_steps;
+using repro::counted;
 
 constexpr int kSmemThreads = 256;
 constexpr int kPerThread = 4;
 constexpr int kTile = kSmemThreads * kPerThread;  // queries a block step
-constexpr int kGlobalThreads = 256;
+constexpr int kWarps = kSmemThreads / 32;
+constexpr int kWindow = 2048;  // boundaries a tile's window may stage
+constexpr int kGroups = 2;  // tiled route: groups of four queries a thread
+constexpr int kCountTile = kGroups * kTile;  // tiled route: queries a tile
 
 template <typename T>
 __device__ __forceinline__ T from_bits(int b);
@@ -147,15 +172,198 @@ __global__ void __launch_bounds__(kSmemThreads)
   }
 }
 
+// a < b for the tile's min and max, with NaN above every number (a NaN query
+// counts every boundary, as the largest query would)
+template <typename T>
+__device__ __forceinline__ bool nan_high_less(T a, T b) {
+  if constexpr (std::is_same<T, float>::value) {
+    return !isnan(a) && (isnan(b) || a < b);
+  } else {
+    return a < b;
+  }
+}
+
+// The count for q over all nb boundaries, by one warp (every lane gets it):
+// the splitters (split[i] = b[i << shift], nsplit of them, in shared memory)
+// give the block of 2^shift boundaries that holds the count, then rounds of
+// 64 probes through L2 (two a lane, ballots counted) shrink the uncertain
+// window 64-fold until one round reads it whole.
 template <typename T, bool kRight>
-__global__ void bucketize_global_kernel(const T* __restrict__ boundaries,
-                                        int64_t nb, int steps,
-                                        const T* __restrict__ queries,
-                                        int32_t* __restrict__ out, int64_t nq) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nq; i += stride) {
-    out[i] = bisect<T, kRight, true>(boundaries, nb, steps, __ldg(queries + i));
+__device__ __forceinline__ int64_t count_warp(const T* __restrict__ b,
+                                              int64_t nb, const T* split,
+                                              int nsplit, int split_steps,
+                                              int shift, T q, int lane) {
+  const int k = bisect<T, kRight, false>(split, nsplit, split_steps, q);
+  if (k == 0) return 0;
+  // b[(k - 1) << shift] is counted and b[k << shift] (if any) is not
+  int64_t base = (static_cast<int64_t>(k - 1) << shift) + 1;
+  const int64_t stop = static_cast<int64_t>(k) << shift;
+  int64_t len = (stop < nb ? stop : nb) - base;
+  while (len > 64) {
+    const int64_t step = (len + 63) / 64;
+    int m = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t p = base + (2 * lane + i + 1) * step - 1;
+      const bool ok = p < base + len && counted<T, kRight>(__ldg(b + p), q);
+      m += __popc(__ballot_sync(0xffffffffu, ok));
+    }
+    base += m * step;
+    len = len - m * step < step ? len - m * step : step;
+  }
+  int m = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t p = base + lane + 32 * i;
+    const bool ok = p < base + len && counted<T, kRight>(__ldg(b + p), q);
+    m += __popc(__ballot_sync(0xffffffffu, ok));
+  }
+  return base + m;
+}
+
+// The splitter route for four queries: the count of each over the staged
+// splitters (bisect4), then its last `shift` levels through L2, the four
+// searches interleaved.
+template <typename T, bool kRight>
+__device__ __forceinline__ void splitter_count4(
+    const T* __restrict__ b, int64_t nb, const T* split, int nsplit,
+    bool split_odd, int shift, const T (&q)[kPerThread],
+    int32_t (&c)[kPerThread]) {
+  int32_t k[kPerThread];
+  bisect4<T, kRight>(split, nsplit, split_odd, q, k);
+  int64_t base[kPerThread], len[kPerThread];
+  int32_t rel[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    // as in count_warp: b[(k - 1) << shift] counted, b[k << shift] not
+    base[j] = k[j] ? (static_cast<int64_t>(k[j] - 1) << shift) + 1 : 0;
+    const int64_t stop = static_cast<int64_t>(k[j]) << shift;
+    len[j] = k[j] ? (stop < nb ? stop : nb) - base[j] : 0;
+    rel[j] = 0;
+  }
+  for (int lev = shift - 1; lev >= 0; --lev) {
+    T v[kPerThread];
+    bool in[kPerThread];
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int32_t cand = rel[j] + (1 << lev);
+      in[j] = cand <= len[j];
+      v[j] = in[j] ? __ldg(b + base[j] + cand - 1) : T(0);
+    }
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      if (in[j] && counted<T, kRight>(v[j], q[j])) rel[j] += 1 << lev;
+  }
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    c[j] = static_cast<int32_t>(base[j] + rel[j]);
+}
+
+template <typename T, bool kRight, bool kVec>
+__global__ void __launch_bounds__(kSmemThreads)
+    bucketize_tiled_kernel(const T* __restrict__ boundaries, int64_t nb,
+                           int shift, int nsplit, int split_steps,
+                           const T* __restrict__ queries,
+                           int32_t* __restrict__ out, int64_t nq) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int64_t* lohi = reinterpret_cast<int64_t*>(smem_raw);  // [2]
+  T* red = reinterpret_cast<T*>(smem_raw + 16);          // [2][kWarps]
+  T* split = red + 2 * kWarps;                           // [nsplit]
+  T* win = split + nsplit;                               // [kWindow]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tiles = (nq + kCountTile - 1) / kCountTile;
+  const int64_t per = (tiles + gridDim.x - 1) / gridDim.x;
+  int64_t tile = static_cast<int64_t>(blockIdx.x) * per;
+  const int64_t last = tile + per < tiles ? tile + per : tiles;
+  // group gr of a tile: its queries kTile * gr .. kTile * (gr + 1) - 1
+  T q[kGroups][kPerThread];
+  if (tile < last) {
+#pragma unroll
+    for (int gr = 0; gr < kGroups; ++gr)
+      load4<T, kVec>(queries, nq, tile * kCountTile + gr * kTile, q[gr]);
+  }
+  for (int i = threadIdx.x; i < nsplit; i += kSmemThreads)
+    split[i] = __ldg(boundaries + (static_cast<int64_t>(i) << shift));
+  const bool split_odd = (nsplit & 255) == 0;  // see window_split
+  __syncthreads();
+  for (; tile < last; ++tile) {
+    T mn = q[0][0], mx = q[0][0];
+#pragma unroll
+    for (int gr = 0; gr < kGroups; ++gr) {
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        if (nan_high_less(q[gr][j], mn)) mn = q[gr][j];
+        if (nan_high_less(mx, q[gr][j])) mx = q[gr][j];
+      }
+    }
+    // the next tile's queries are in flight during this tile's searches
+    const bool more = tile + 1 < last;
+    T qn[kGroups][kPerThread];
+    if (more) {
+#pragma unroll
+      for (int gr = 0; gr < kGroups; ++gr)
+        load4<T, kVec>(queries, nq, (tile + 1) * kCountTile + gr * kTile,
+                       qn[gr]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const T a = __shfl_xor_sync(0xffffffffu, mn, off);
+      const T z = __shfl_xor_sync(0xffffffffu, mx, off);
+      if (nan_high_less(a, mn)) mn = a;
+      if (nan_high_less(mx, z)) mx = z;
+    }
+    if (lane == 0) {
+      red[warp] = mn;
+      red[kWarps + warp] = mx;
+    }
+    __syncthreads();
+    if (warp < 2) {  // warp 0 counts the tile's min, warp 1 its max
+      T v = red[warp * kWarps + (lane & (kWarps - 1))];
+#pragma unroll
+      for (int off = kWarps / 2; off > 0; off >>= 1) {
+        const T a = __shfl_xor_sync(0xffffffffu, v, off);
+        if (warp == 0 ? nan_high_less(a, v) : nan_high_less(v, a)) v = a;
+      }
+      const int64_t c = count_warp<T, kRight>(boundaries, nb, split, nsplit,
+                                              split_steps, shift, v, lane);
+      if (lane == 0) lohi[warp] = c;
+    }
+    __syncthreads();
+    const int64_t lo = lohi[0], hi = lohi[1];
+    int32_t c[kGroups][kPerThread];
+    if (hi - lo <= kWindow) {
+      const int nw = static_cast<int>(hi - lo);
+      for (int i = threadIdx.x; i < nw; i += kSmemThreads)
+        win[i] = __ldg(boundaries + lo + i);
+      __syncthreads();
+#pragma unroll
+      for (int gr = 0; gr < kGroups; ++gr) {
+        if (nw > 0) {
+          bisect4<T, kRight>(win, nw, (nw & 255) == 0, q[gr], c[gr]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kPerThread; ++j) c[gr][j] = 0;
+        }
+#pragma unroll
+        for (int j = 0; j < kPerThread; ++j)
+          c[gr][j] += static_cast<int32_t>(lo);
+      }
+    } else {
+#pragma unroll
+      for (int gr = 0; gr < kGroups; ++gr)
+        splitter_count4<T, kRight>(boundaries, nb, split, nsplit, split_odd,
+                                   shift, q[gr], c[gr]);
+    }
+#pragma unroll
+    for (int gr = 0; gr < kGroups; ++gr)
+      store4<kVec>(out, nq, tile * kCountTile + gr * kTile, c[gr]);
+    if (more) {
+#pragma unroll
+      for (int gr = 0; gr < kGroups; ++gr)
+#pragma unroll
+        for (int j = 0; j < kPerThread; ++j) q[gr][j] = qn[gr][j];
+    }
   }
 }
 
@@ -197,16 +405,6 @@ int launch(const void* b, int64_t nb, const void* q, int64_t nq, void* out,
   const T* bp = static_cast<const T*>(b);
   const T* qp = static_cast<const T*>(q);
   int32_t* op = static_cast<int32_t*>(out);
-  if (flags & 4) {
-    const int steps = bisect_steps(nb);
-    auto k = right ? bucketize_global_kernel<T, true>
-                   : bucketize_global_kernel<T, false>;
-    int64_t grid = (nq + kGlobalThreads - 1) / kGlobalThreads;
-    if (grid > 0x7fffffff) grid = 0x7fffffff;
-    k<<<static_cast<unsigned>(grid), kGlobalThreads, 0, stream>>>(bp, nb, steps,
-                                                                  qp, op, nq);
-    return static_cast<int>(cudaGetLastError());
-  }
   if (nb < 1 || nb * static_cast<int64_t>(sizeof(T)) > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec && ((reinterpret_cast<uintptr_t>(qp) |
@@ -218,12 +416,53 @@ int launch(const void* b, int64_t nb, const void* q, int64_t nq, void* out,
                                              persistent, stream);
 }
 
+template <auto kKernel, typename T>
+int launch_tiled(const T* bp, int64_t nb, const T* qp, int32_t* op,
+                 int64_t nq, int64_t max_blocks, int max_splitters,
+                 cudaStream_t stream) {
+  int shift = 0;
+  while (((nb - 1) >> shift) + 1 > max_splitters) ++shift;
+  const int nsplit = static_cast<int>(((nb - 1) >> shift) + 1);
+  const size_t smem =
+      16 + sizeof(T) * (2 * kWarps + static_cast<size_t>(nsplit) + kWindow);
+  const int64_t tiles = (nq + kCountTile - 1) / kCountTile;
+  unsigned grid = 0;
+  cudaError_t err = repro::smem_grid<kKernel>(kSmemThreads, smem, tiles, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (max_blocks > 0 && grid > max_blocks)
+    grid = static_cast<unsigned>(max_blocks);
+  kKernel<<<grid, kSmemThreads, smem, stream>>>(
+      bp, nb, shift, nsplit, bisect_steps(nsplit), qp, op, nq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_count(const void* b, int64_t nb, const void* q, int64_t nq,
+                 void* out, int flags, int64_t max_blocks, int max_splitters,
+                 cudaStream_t s) {
+  const T* bp = static_cast<const T*>(b);
+  const T* qp = static_cast<const T*>(q);
+  int32_t* op = static_cast<int32_t*>(out);
+  const bool right = flags & 2, vec = flags & 8;
+  if (vec && ((reinterpret_cast<uintptr_t>(qp) |
+               reinterpret_cast<uintptr_t>(op)) & 15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (right)
+    return vec ? launch_tiled<bucketize_tiled_kernel<T, true, true>>(
+                     bp, nb, qp, op, nq, max_blocks, max_splitters, s)
+               : launch_tiled<bucketize_tiled_kernel<T, true, false>>(
+                     bp, nb, qp, op, nq, max_blocks, max_splitters, s);
+  return vec ? launch_tiled<bucketize_tiled_kernel<T, false, true>>(
+                   bp, nb, qp, op, nq, max_blocks, max_splitters, s)
+             : launch_tiled<bucketize_tiled_kernel<T, false, false>>(
+                   bp, nb, qp, op, nq, max_blocks, max_splitters, s);
+}
+
 }  // namespace
 
 // flags, one bit each: 1 float32 (else int32); 2 right: count(b <= q) (else
-// count(b < q)); 4 global: bisection through L2, any nb (else the boundaries
-// are staged in shared memory, 1 <= nb, nb * 4 <= 232,448 bytes); on the
-// shared-memory route, as kernels/bucketize.py's launch_plan sets them,
+// count(b < q)); the boundaries are staged in shared memory (1 <= nb,
+// nb * 4 <= 232,448 bytes); as kernels/bucketize.py's launch_plan sets them,
 // 8 vec: one 16-byte load and store a thread (queries and out 16-byte
 // aligned), 16 persistent: a grid of at most the resident blocks.
 extern "C" int repro_bucketize(const void* boundaries, int64_t nb,
@@ -234,6 +473,25 @@ extern "C" int repro_bucketize(const void* boundaries, int64_t nb,
   return (flags & 1)
              ? launch<float>(boundaries, nb, queries, nq, out, flags, s)
              : launch<int32_t>(boundaries, nb, queries, nq, out, flags, s);
+}
+
+// The tiled route, any nb >= 1. flags as repro_bucketize's 1, 2 and 8;
+// max_blocks > 0 caps the persistent grid; max_splitters (>= 1) bounds the
+// boundaries staged a block (every 2^s-th, s the least that fits). Neither
+// changes a count.
+extern "C" int repro_bucketize_count(const void* boundaries, int64_t nb,
+                                     const void* queries, int64_t nq,
+                                     void* out, int flags, int64_t max_blocks,
+                                     int max_splitters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nq <= 0) return 0;
+  if (nb < 1 || max_splitters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return (flags & 1)
+             ? launch_count<float>(boundaries, nb, queries, nq, out, flags,
+                                   max_blocks, max_splitters, s)
+             : launch_count<int32_t>(boundaries, nb, queries, nq, out, flags,
+                                     max_blocks, max_splitters, s);
 }
 
 extern "C" const char* repro_bucketize_error_string(int err) {

@@ -34,8 +34,12 @@ Differences from ``repro.kernels.dispatch``:
     through L2).
   * Calls the kernels cannot take go to a PyTorch formulation that mirrors
     the reference's XLA route: dtypes other than int32/float32 (e.g. the
-    int8/int16 centered plain columns), G above the kernel's 4096, integer
-    COUNT sums. Each decision is recorded by ``_route``.
+    int8/int16 centered plain columns), G above the kernel's 4096. Each
+    decision is recorded by ``_route``.
+  * ``segment_sum`` takes the kernel for int32 values too, where the
+    reference keeps integer sums (COUNT) on an XLA scatter-add: int32 adds
+    wrap alike in any order, and a reduction replaces the atomics that a
+    scatter-add piles onto one address (G = 1 for an ungrouped COUNT).
   * Packed queries and packed run values (``PackedColumn``) route to the
     fused kernels of ``kernels/unpack.py``. The reference's
     ``MAX_VMEM_WORDS`` ceiling (2M words, a TPU VMEM budget) is gone: the
@@ -87,7 +91,7 @@ class DispatchPolicy:
     bucketize_max_vmem_boundaries: int = MAX_SMEM_BOUNDARIES
     # rle_decode: below this many rows the scatter+cumsum sweep is used.
     rle_decode_min_rows: int = 0
-    # segment_sum: the kernel keeps eight [G] float arrays in shared memory.
+    # segment_sum: the kernel keeps eight [G] arrays in shared memory.
     segment_sum_max_groups: int = MAX_MATMUL_SEGMENTS
     # sort-free grouping (groupby.grouping): scatter over the mixed-radix
     # key domain instead of argsort-unique, when every group key has
@@ -353,13 +357,15 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Segment sum; out-of-range ids (capacity padding) contribute 0.
 
-    The deterministic kernel when the policy allows and G fits its shared
-    memory; an ``index_add_`` otherwise. Only float32 routes to the kernel
-    (integer callers — COUNT — keep exact integer arithmetic)."""
+    The deterministic kernel when the policy allows, the values are
+    float32 or int32 (integer sums — COUNT — stay exact: int32 adds wrap
+    in any order) with int32 ids, and G fits its shared memory; otherwise
+    the scatter-add of the reference's ``.at[ids].add(mode="drop")``
+    (``encodings.scatter_drop``)."""
     pol = policy()
     on = pol.kernels_enabled(values, segment_ids)
     limit = min(pol.segment_sum_max_groups, MAX_SEGMENTS)
-    if (on and values.dtype == torch.float32
+    if (on and values.dtype in _KERNEL_DTYPES
             and segment_ids.dtype == torch.int32
             and 0 < num_segments <= limit and values.shape[0] > 0):
         _route("segment_sum", "kernel",
@@ -368,11 +374,15 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                                   segment_ids.contiguous(), num_segments)
     _route("segment_sum", "torch_scatter",
            _off_reason(pol) if not on
-           else f"dtype {values.dtype} keeps exact scatter arithmetic"
-           if values.dtype != torch.float32
+           else f"dtype {values.dtype}/{segment_ids.dtype} not routed"
+           if values.dtype not in _KERNEL_DTYPES
+           or segment_ids.dtype != torch.int32
            else f"G={num_segments} outside (0, segment_sum_max_groups="
-           f"{limit}]")
-    return ref_mod.ref_segment_reduce(values, segment_ids, num_segments)
+           f"{limit}]" if not 0 < num_segments <= limit else "empty values")
+    from repro_torch.core.encodings import scatter_drop
+    return scatter_drop(torch.zeros((num_segments,), dtype=values.dtype,
+                                    device=values.device),
+                        segment_ids, values, "add")
 
 
 def topk(values: torch.Tensor, k: int):

@@ -56,21 +56,38 @@ def ref_rle_decode(values: torch.Tensor, starts: torch.Tensor,
     return torch.where(covered, values[run], fill_t.to(dev))
 
 
+SPARE_SLOTS = 1024  # spare slots that dropped updates spread over
+
+
+def drop_slots(ids: torch.Tensor, size: int) -> torch.Tensor:
+    """int64 ``ids`` with each one outside ``[0, size)`` moved to the spare
+    slot ``size + (position & (SPARE_SLOTS - 1))``. A scatter into
+    ``size + SPARE_SLOTS`` slots then drops those updates by slicing the
+    spares off, and two dropped updates share an address only when their
+    positions agree modulo ``SPARE_SLOTS`` (one spare slot would serialise
+    every dropped update of a scatter on one address)."""
+    ids = ids.to(torch.int64)
+    pos = torch.arange(ids.shape[0], dtype=torch.int64, device=ids.device)
+    return torch.where((ids >= 0) & (ids < size), ids,
+                       size + (pos & (SPARE_SLOTS - 1)))
+
+
 def ref_segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int, reduce: str = "sum") -> torch.Tensor:
     """Segment reduction by id; ids outside [0, num_segments) are dropped.
 
     The ids need not be sorted. Sums accumulate in ``values.dtype`` with
-    ``index_add_`` into a spare slot that takes the dropped rows."""
+    ``index_add_``; dropped rows land in the spare slots of
+    ``drop_slots``, which are sliced off."""
     g = num_segments
-    ids = segment_ids.to(torch.int64)
-    ids = torch.where((ids >= 0) & (ids < g), ids, g)
+    ids = drop_slots(segment_ids, g)
     if reduce == "sum":
-        out = torch.zeros((g + 1,), dtype=values.dtype, device=values.device)
+        out = torch.zeros((g + SPARE_SLOTS,), dtype=values.dtype,
+                          device=values.device)
         return out.index_add_(0, ids, values)[:g]
     if reduce in ("max", "min"):
         init = float("-inf") if reduce == "max" else float("inf")
-        out = torch.full((g + 1,), init, dtype=values.dtype,
+        out = torch.full((g + SPARE_SLOTS,), init, dtype=values.dtype,
                          device=values.device)
         out.scatter_reduce_(0, ids, values, "amax" if reduce == "max"
                             else "amin", include_self=True)

@@ -13,6 +13,7 @@ cast to the value dtype as a 32-bit pattern, and counts each launch.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,16 +21,20 @@ from repro_torch.kernels import _build, ref
 
 _VALUE_DTYPES = (torch.int32, torch.float32)
 _SOURCE = "rle_decode.cu"
+_ENTRY: Optional[Tuple[ctypes.CDLL, object]] = None
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library(_SOURCE)
-    fn = lib.repro_rle_decode
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def _entry():
+    global _ENTRY
+    if _ENTRY is None:
+        lib = _build.library(_SOURCE)
+        fn = lib.repro_rle_decode
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_uint32, p, p]
+        fn.restype = ctypes.c_int
+        _ENTRY = (lib, fn)
+    return _ENTRY
 
 
 def fill_bits(fill, dtype: torch.dtype) -> int:
@@ -81,13 +86,15 @@ def rle_decode_kernel(values: torch.Tensor, starts: torch.Tensor,
     bits = fill_bits(fill, values.dtype)
     out = torch.empty((nrows,), dtype=values.dtype, device=values.device)
     n = n.reshape(()).contiguous()
-    lib = _lib()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = lib.repro_rle_decode(values.data_ptr(), starts.data_ptr(),
-                                   ends.data_ptr(), n.data_ptr(), cap, nrows,
-                                   bits, out.data_ptr(), stream)
-    _build.check(lib, err, "rle_decode_kernel", "repro_rle_decode_error_string")
-    _build.count_launch("rle_decode_kernel", 3 * cap + nrows, values=values,
-                        starts=starts, ends=ends, n=n, nrows=nrows, fill=fill)
+    lib, fn = _ENTRY or _entry()
+    err = _build.run_on(values.get_device(), fn, values.data_ptr(),
+                        starts.data_ptr(), ends.data_ptr(), n.data_ptr(), cap,
+                        nrows, bits, out.data_ptr())
+    if err:
+        _build.check(lib, err, "rle_decode_kernel",
+                     "repro_rle_decode_error_string")
+    _build.count_launch("rle_decode_kernel", 3 * cap + nrows,
+                        f"rows={_build.pow2(nrows)} cap={_build.pow2(cap)}",
+                        values=values, starts=starts, ends=ends, n=n,
+                        nrows=nrows, fill=fill)
     return out

@@ -21,7 +21,7 @@ for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +41,7 @@ BLOCKS_PER_SM = 2
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 _SOURCE = "topk.cu"
 _ENTRY: Optional[Tuple[ctypes.CDLL, object]] = None
+_SMS: Dict[int, int] = {}
 
 
 class Launch(NamedTuple):
@@ -63,6 +64,15 @@ def _entry():
         fn.restype = ctypes.c_int
         _ENTRY = (lib, fn)
     return _ENTRY
+
+
+def _sm_count(index: int) -> int:
+    """The card's SM count, read once per card."""
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
 
 
 def k_pow2_of(k: int) -> int:
@@ -130,25 +140,25 @@ def topk_kernel(values: torch.Tensor, k: int,
     if values.device.type == "cpu":
         return ref.topk(values, k)
     dev = values.device
+    index = values.get_device()
     if max_blocks is None:
-        max_blocks = (torch.cuda.get_device_properties(dev)
-                      .multi_processor_count * BLOCKS_PER_SM)
-    lib, fn = _entry()
+        max_blocks = _sm_count(index) * BLOCKS_PER_SM
+    lib, fn = _ENTRY or _entry()
     code = _DTYPE_CODE[values.dtype]
     cur_v, cur_i = values, None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for launch in plan(values.shape[0], k, max_blocks):
-            out_v = torch.empty((launch.grid * k_pow2,), dtype=values.dtype,
-                                device=dev)
-            out_i = torch.empty((launch.grid * k_pow2,), dtype=torch.int32,
-                                device=dev)
-            err = fn(cur_v.data_ptr(),
-                     None if cur_i is None else cur_i.data_ptr(),
-                     launch.rows, launch.range_rows, launch.grid, k_pow2, code,
-                     out_v.data_ptr(), out_i.data_ptr(), stream)
+    cls = f"{str(values.dtype)[6:]} n={_build.pow2(values.shape[0])} k={k_pow2}"
+    for launch in plan(values.shape[0], k, max_blocks):
+        out_v = torch.empty((launch.grid * k_pow2,), dtype=values.dtype,
+                            device=dev)
+        out_i = torch.empty((launch.grid * k_pow2,), dtype=torch.int32,
+                            device=dev)
+        err = _build.run_on(index, fn, cur_v.data_ptr(),
+                            None if cur_i is None else cur_i.data_ptr(),
+                            launch.rows, launch.range_rows, launch.grid,
+                            k_pow2, code, out_v.data_ptr(), out_i.data_ptr())
+        if err:
             _build.check(lib, err, "topk_kernel", "repro_topk_error_string")
-            _build.count_launch("topk_kernel", values.shape[0], values=values,
-                                k=k)
-            cur_v, cur_i = out_v, out_i
+        _build.count_launch("topk_kernel", values.shape[0], cls,
+                            values=values, k=k)
+        cur_v, cur_i = out_v, out_i
     return cur_v[:k], cur_i[:k]

@@ -24,7 +24,7 @@ without a launch for empty outputs, and count each launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,21 +33,27 @@ from repro_torch.kernels.bucketize import MAX_SMEM_BOUNDARIES
 from repro_torch.kernels.rle_decode import fill_bits
 
 _SOURCE = "unpack.cu"
+_ENTRIES: Optional[Tuple[ctypes.CDLL, object, object, object]] = None
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library(_SOURCE)
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    lib.repro_unpack.argtypes = [p, i64, ctypes.c_int, i32, i64, p, p]
-    lib.repro_bucketize_packed.argtypes = [p, i64, p, i64, ctypes.c_int, i32,
-                                           i64, p, ctypes.c_int, ctypes.c_int,
-                                           p]
-    lib.repro_rle_decode_packed.argtypes = [p, i64, ctypes.c_int, i32, p, p, p,
-                                            i64, i64, i32, p, p]
-    for fn in (lib.repro_unpack, lib.repro_bucketize_packed,
-               lib.repro_rle_decode_packed):
-        fn.restype = ctypes.c_int
-    return lib
+def _entries():
+    """The library and its three C entries, bound once."""
+    global _ENTRIES
+    if _ENTRIES is None:
+        lib = _build.library(_SOURCE)
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+        lib.repro_unpack.argtypes = [p, i64, ctypes.c_int, i32, i64, p, p]
+        lib.repro_bucketize_packed.argtypes = [p, i64, p, i64, ctypes.c_int,
+                                               i32, i64, p, ctypes.c_int,
+                                               ctypes.c_int, p]
+        lib.repro_rle_decode_packed.argtypes = [p, i64, ctypes.c_int, i32, p,
+                                                p, p, i64, i64, i32, p, p]
+        for fn in (lib.repro_unpack, lib.repro_bucketize_packed,
+                   lib.repro_rle_decode_packed):
+            fn.restype = ctypes.c_int
+        _ENTRIES = (lib, lib.repro_unpack, lib.repro_bucketize_packed,
+                    lib.repro_rle_decode_packed)
+    return _ENTRIES
 
 
 def nwords_for(nvals: int, bit_width: int) -> int:
@@ -87,16 +93,16 @@ def unpack_kernel(words: torch.Tensor, bit_width: int, offset,
     out = torch.empty((nvals,), dtype=torch.int32, device=words.device)
     if nvals == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = lib.repro_unpack(words.data_ptr(), words.shape[0],
-                               int(bit_width), int32_offset(offset), nvals,
-                               out.data_ptr(), stream)
-    _build.check(lib, err, "unpack_kernel", "repro_unpack_error_string")
-    _build.count_launch("unpack_kernel", nvals, words=words,
-                        bit_width=int(bit_width), offset=int(offset),
-                        nvals=nvals)
+    lib, fn, _, _ = _ENTRIES or _entries()
+    err = _build.run_on(words.get_device(), fn, words.data_ptr(),
+                        words.shape[0], int(bit_width), int32_offset(offset),
+                        nvals, out.data_ptr())
+    if err:
+        _build.check(lib, err, "unpack_kernel", "repro_unpack_error_string")
+    _build.count_launch("unpack_kernel", nvals,
+                        f"n={_build.pow2(nvals)} bits={int(bit_width)}",
+                        words=words, bit_width=int(bit_width),
+                        offset=int(offset), nvals=nvals)
     return out
 
 
@@ -133,16 +139,17 @@ def bucketize_packed_kernel(boundaries: torch.Tensor, words: torch.Tensor,
         return out
     if nb == 0:
         return out.zero_()
-    lib = _lib()
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = lib.repro_bucketize_packed(
-            boundaries.data_ptr(), nb, words.data_ptr(), words.shape[0],
-            int(bit_width), int32_offset(offset), nvals, out.data_ptr(),
-            int(bool(right)), int(bool(global_route)), stream)
-    _build.check(lib, err, "bucketize_packed_kernel",
-                 "repro_unpack_error_string")
+    lib, _, fn, _ = _ENTRIES or _entries()
+    err = _build.run_on(words.get_device(), fn, boundaries.data_ptr(), nb,
+                        words.data_ptr(), words.shape[0], int(bit_width),
+                        int32_offset(offset), nvals, out.data_ptr(),
+                        int(bool(right)), int(bool(global_route)))
+    if err:
+        _build.check(lib, err, "bucketize_packed_kernel",
+                     "repro_unpack_error_string")
     _build.count_launch("bucketize_packed_kernel", nb + nvals,
+                        f"q={_build.pow2(nvals)} nb={_build.pow2(nb)} "
+                        f"bits={int(bit_width)}",
                         boundaries=boundaries, words=words,
                         bit_width=int(bit_width), offset=int(offset),
                         nvals=nvals, right=bool(right))
@@ -179,17 +186,17 @@ def rle_decode_packed_kernel(words: torch.Tensor, bit_width: int, offset,
     bits = fill_bits(fill, torch.int32)
     n = n.reshape(()).contiguous()
     out = torch.empty((nrows,), dtype=torch.int32, device=words.device)
-    lib = _lib()
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = lib.repro_rle_decode_packed(
-            words.data_ptr(), words.shape[0], int(bit_width),
-            int32_offset(offset), starts.data_ptr(), ends.data_ptr(),
-            n.data_ptr(), cap, nrows, int32_offset(bits), out.data_ptr(),
-            stream)
-    _build.check(lib, err, "rle_decode_packed_kernel",
-                 "repro_unpack_error_string")
+    lib, _, _, fn = _ENTRIES or _entries()
+    err = _build.run_on(words.get_device(), fn, words.data_ptr(),
+                        words.shape[0], int(bit_width), int32_offset(offset),
+                        starts.data_ptr(), ends.data_ptr(), n.data_ptr(), cap,
+                        nrows, int32_offset(bits), out.data_ptr())
+    if err:
+        _build.check(lib, err, "rle_decode_packed_kernel",
+                     "repro_unpack_error_string")
     _build.count_launch("rle_decode_packed_kernel", 3 * cap + nrows,
+                        f"rows={_build.pow2(nrows)} cap={_build.pow2(cap)} "
+                        f"bits={int(bit_width)}",
                         words=words, bit_width=int(bit_width),
                         offset=int(offset), cap=cap, starts=starts, ends=ends,
                         n=n, nrows=nrows, fill=fill)

@@ -239,3 +239,37 @@ def test_helpers_follow_jax_index_semantics():
     got = TE.scatter_drop(torch.zeros(5, dtype=torch.int32),
                           torch.from_numpy(upd), 3, "add")
     assert_same(want, got)
+
+
+@pytest.mark.parametrize("how", ["set", "add", "amin", "amax"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_scatter_drop_mostly_dropped_matches_jax(rng, how, dtype):
+    """``scatter_drop`` with more than 90% of the updates out of range (at
+    size, above it, below -size) or negative (in [-size, -1], which wrap
+    once, as JAX's do) equals ``.at[idx].<how>(src, mode="drop")``
+    exactly; the dropped updates spread over the spare block."""
+    size, n = 64, 20_000
+    idx = rng.integers(size, 3 * size, n)
+    pick = rng.random(n)
+    idx[pick < 0.5] = size
+    idx[pick < 0.3] = rng.integers(-3 * size, -size, int((pick < 0.3).sum()))
+    live = np.zeros(n, bool)
+    if how == "set":  # one update a slot, so the winner is defined
+        slots = rng.choice(size, size // 2, replace=False)
+        where = rng.choice(n, len(slots), replace=False)
+        idx[where] = np.where(rng.random(len(slots)) < 0.5, slots,
+                              slots - size)
+    else:
+        where = rng.random(n) < 0.05
+        idx[where] = rng.integers(-size, size, int(where.sum()))
+    live[where] = True
+    assert (~live).mean() > 0.9
+    idx = idx.astype(np.int32)
+    src = rng.integers(-500, 500, n).astype(dtype)
+    base = rng.integers(-9, 9, size).astype(dtype)
+    jx = jnp.asarray(base).at[jnp.asarray(idx)]
+    jop = {"set": jx.set, "add": jx.add, "amin": jx.min, "amax": jx.max}[how]
+    want = jop(jnp.asarray(src), mode="drop")
+    got = TE.scatter_drop(torch.from_numpy(base), torch.from_numpy(idx),
+                          torch.from_numpy(src), how)
+    assert_same(want, got, how)

@@ -439,3 +439,102 @@ def test_gpu_ranked_queries_match_cpu_and_oracle(cuda_device, name):
     if name != "Q3r":
         assert chip_smoke._bits(streamed) == chip_smoke._bits(gpu[0])
         assert chip_smoke._bits(runs[("cpu", 0)]) == chip_smoke._bits(gpu[0])
+
+
+# ---------------------------------------------------------------------------
+# The redesigned segment_sum (float32 and int32) and bucketize_count kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", chip_smoke.SEGSUM_GROUPS)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("pattern", chip_smoke.SEGSUM_PATTERNS)
+def test_gpu_segment_sum_kernel_cases(cuda_device, g, dtype, pattern):
+    """int32 sums equal the plain version (wrapping ``index_add_``), and
+    ``index_add_`` itself on in-range ids; float32 within rtol 1e-4 of a
+    float64 sum; the bits equal across launches, grid caps (1, 3, 64
+    blocks) and an offset view (scalar loads)."""
+    rng = np.random.default_rng(g * 7 + len(pattern))
+    v, ids = chip_smoke.segsum_case(rng, g, dtype, pattern, n=100_003)
+    vt, it = _t(v, cuda_device), _t(ids, cuda_device)
+    got = segment_sum_kernel(vt, it, g)
+    runs = [segment_sum_kernel(vt, it, g)] + [
+        segment_sum_kernel(vt, it, g, max_blocks=cap) for cap in (1, 3, 64)]
+    vo = torch.zeros(len(v) + 1, dtype=vt.dtype, device=cuda_device)
+    io = torch.zeros(len(v) + 1, dtype=it.dtype, device=cuda_device)
+    vo[1:], io[1:] = vt, it
+    runs.append(segment_sum_kernel(vo[1:], io[1:], g))
+    for r in runs:
+        assert torch.equal(got.view(torch.int32), r.view(torch.int32))
+    if dtype == np.int32:
+        assert torch.equal(got, ref.ref_segment_reduce(vt, it, g))
+        if pattern == "in_range":
+            assert torch.equal(got, torch.zeros(
+                g, dtype=torch.int32, device=cuda_device).index_add_(0, it, vt))
+    else:
+        keep = (ids >= 0) & (ids < g)
+        exact = np.zeros(g, np.float64)
+        np.add.at(exact, ids[keep], v[keep].astype(np.float64))
+        np.testing.assert_allclose(got.cpu().numpy(), exact, rtol=1e-4,
+                                   atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 2, 16, 33, 512])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_gpu_segment_sum_kernel_equals_its_emulated_order(cuda_device, g,
+                                                          dtype):
+    """The kernel's bits are those of ``segment_sum_emulated``, the numpy
+    repeat of its fixed order: the order depends on N and G only."""
+    from torch_twins import segment_sum_emulated
+    rng = np.random.default_rng(40 + g)
+    v, ids = chip_smoke.segsum_case(rng, g, dtype, "ragged")
+    got = segment_sum_kernel(_t(v, cuda_device), _t(ids, cuda_device), g)
+    want = segment_sum_emulated(v, ids, g)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", chip_smoke.COUNT_NB)
+@pytest.mark.parametrize("pattern,dtype", [
+    (p, d) for p in chip_smoke.COUNT_PATTERNS for d in (np.int32, np.float32)
+    if not (p == "nan" and d == np.int32)])  # NaN queries are float32
+def test_gpu_bucketize_count_kernel_cases(cuda_device, nb, pattern, dtype):
+    """The tiled route equals ``ref_bucketize`` on every query pattern at
+    each boundary count, aligned and from a view at offset 1."""
+    rng = np.random.default_rng(nb % 1000 + len(pattern))
+    b = np.sort(rng.integers(0, 4 * nb, nb)).astype(dtype)
+    q = chip_smoke.count_kernel_queries(rng, b, pattern, 200_003)
+    bb, qq = _t(b, cuda_device), _t(q, cuda_device)
+    for off in (0, 1):
+        for right in (True, False):
+            assert torch.equal(kb.bucketize_count_kernel(bb, qq[off:], right),
+                               ref.ref_bucketize(bb, qq[off:], right))
+
+
+@pytest.mark.gpu
+def test_gpu_bucketize_count_kernel_window_edge_and_grid(cuda_device):
+    """Tiles whose counts span exactly the window, one more and one less;
+    and a sorted and a random probe at 2^23 boundaries under grid caps and
+    splitter counts (16 KiB, 64 entries, and 64 KiB, which opts in above
+    48 KiB of shared memory) that change no count."""
+    b, q = chip_smoke.count_window_edge(kb.WINDOW, kb.COUNT_TILE)
+    for dtype in (np.int32, np.float32):
+        bb, qq = _t(b.astype(dtype), cuda_device), _t(q.astype(dtype),
+                                                       cuda_device)
+        for right in (True, False):
+            assert torch.equal(kb.bucketize_count_kernel(bb, qq, right),
+                               ref.ref_bucketize(bb, qq, right))
+    rng = np.random.default_rng(9)
+    bb = _t(np.sort(rng.integers(0, 1 << 26, 1 << 23)).astype(np.int32),
+            cuda_device)
+    for pattern in ("sorted", "random"):
+        q = chip_smoke.count_kernel_queries(rng, bb.cpu().numpy(), pattern,
+                                            1_000_003)
+        qq = _t(q, cuda_device)
+        want = ref.ref_bucketize(bb, qq)
+        for kw in ({}, {"max_blocks": 1}, {"max_blocks": 5},
+                   {"max_splitters": 64}, {"max_splitters": 1 << 14}):
+            assert torch.equal(kb.bucketize_count_kernel(bb, qq, **kw), want)

@@ -20,8 +20,9 @@ from repro_torch.kernels.rle_decode import fill_bits, rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 
 from torch_twins import (BUCKETIZE_CASES, RLE_CASES, TOPK_CASES, I32MIN,
-                         assert_close, assert_same, bucketize_cases, rle_case,
-                         topk_case)
+                         assert_close, assert_same, bucketize_cases,
+                         bucketize_tiles_emulated, rle_case,
+                         segment_sum_emulated, topk_case)
 
 
 def _t(a):
@@ -306,14 +307,18 @@ def test_dispatch_routes_are_recorded(rng, forced, path):
         s = dispatch.segment_sum(v, ids, 8)
         dec = dispatch.maybe_rle_decode(b, b, b, torch.tensor(3, dtype=torch.int32),
                                         100)
-        # integer sums keep exact scatter arithmetic on every route
+        # integer sums are exact on every route; forced on, they take the
+        # int32 instantiation of the kernel
         cnt = dispatch.segment_sum(ids, ids, 8)
     reg = ttelemetry.registry()
     assert reg.counter(f"route.bucketize.{path}") == 1
-    assert reg.counter("route.segment_sum.kernel") == (1 if forced else 0)
-    assert reg.counter("route.segment_sum.torch_scatter") == (1 if forced else 2)
+    assert reg.counter("route.segment_sum.kernel") == (2 if forced else 0)
+    assert reg.counter("route.segment_sum.torch_scatter") == (0 if forced else 2)
     assert (dec is None) == (forced is None)
     assert cnt.dtype == torch.int32
+    np.testing.assert_array_equal(
+        cnt.numpy(), np.bincount(ids.numpy(), weights=ids.numpy(),
+                                 minlength=8).astype(np.int32))
     ttelemetry.reset()
     want = np.searchsorted(b.numpy(), q.numpy(), side="right")
     np.testing.assert_array_equal(got.numpy(), want)
@@ -606,3 +611,144 @@ def test_topk_routes_by_k_and_rows():
     assert reg.counter("route.topk.torch") == 3
     ttelemetry.reset()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The redesigned segment_sum and bucketize_count kernels: their plans in
+# numpy (tests/torch_twins.py), and the dropped-update scatters
+# ---------------------------------------------------------------------------
+
+
+def _mostly_dropped_ids(rng, n, g, negative_below=-1):
+    """int32 ids of which about 92% fall outside [0, g): at g, above it,
+    and negative (at or below ``negative_below``)."""
+    ids = rng.integers(0, g, n).astype(np.int64)
+    pick = rng.random(n)
+    ids[pick < 0.92] = g
+    ids[pick < 0.6] = rng.integers(g + 1, 4 * g + 8, int((pick < 0.6).sum()))
+    ids[pick < 0.3] = rng.integers(-4 * g - 8, negative_below + 1,
+                                   int((pick < 0.3).sum()))
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 2, 16, 31, 32, 33, 512])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_segment_sum_order_emulated(rng, g, dtype):
+    """The kernel's fixed order of adds: the same bits for any grid (the
+    chunks, and so the order, depend on N and G only), float sums close
+    to float64, int32 sums equal to the wrapping ``index_add_`` of the
+    plain version."""
+    from repro_torch.kernels import segment_reduce as ks
+    route, chunk = ks.plan(g)
+    assert route == (ks.ONE if g == 1 else ks.SMALL if g <= 32 else ks.MATCH)
+    assert chunk % ks.STEP == 0
+    n = 3 * chunk + 777  # several chunks and a ragged last step
+    ids = rng.integers(0, g, n).astype(np.int32)
+    ids[rng.random(n) < 0.4] = g  # dropped rows between live ones
+    if dtype == np.float32:
+        v = (rng.standard_normal(n) * 100).astype(np.float32)
+    else:
+        v = rng.integers(-(2**31), 2**31 - 1, n, endpoint=True).astype(np.int32)
+    got = segment_sum_emulated(v, ids, g)
+    for grid in (1, 3):
+        again = segment_sum_emulated(v, ids, g, grid=grid)
+        assert got.tobytes() == again.tobytes(), grid
+    plain = ref.ref_segment_reduce(_t(v), _t(ids), g).numpy()
+    if dtype == np.int32:
+        np.testing.assert_array_equal(got, plain)
+    else:
+        keep = ids < g
+        exact = np.zeros(g, np.float64)
+        np.add.at(exact, ids[keep], v[keep].astype(np.float64))
+        np.testing.assert_allclose(got, exact, rtol=1e-5, atol=1e-2)
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.parametrize("case", ["sorted", "random", "duplicates", "nan",
+                                  "one_tile", "clustered", "out_of_range"])
+@pytest.mark.parametrize("right", [True, False])
+def test_bucketize_tile_plan_emulated(rng, case, right):
+    """The tiled route's plan (a tile's min and max counted, then the
+    window or the splitter route) equals np.searchsorted, with few
+    splitters and a small window (both routes, several L2 levels) and at
+    the kernel's own sizes."""
+    dtype = np.float32 if case == "nan" else np.int32
+    b = np.sort(rng.integers(0, 100_000, 20_000)).astype(dtype)
+    n = 9_000
+    if case == "sorted":  # a tile spans about 90 boundaries
+        q = np.sort(rng.integers(-10, 2_000, n))
+    elif case == "random":
+        q = rng.integers(-10, 100_010, n)
+    elif case == "duplicates":
+        b = np.sort(rng.integers(0, 30, 20_000)).astype(dtype)
+        q = rng.integers(-2, 33, n)
+    elif case == "nan":
+        q = rng.random(n) * 100_010
+        q[rng.random(n) < 0.05] = np.nan
+        q[:1024] = np.nan  # a tile of NaN only
+    elif case == "one_tile":
+        q = rng.integers(0, 100_000, 700)
+    elif case == "clustered":  # runs of equal keys, sorted within bursts
+        q = np.repeat(np.sort(rng.integers(0, 100_000, n // 50)), 50)
+        q[::997] = rng.integers(0, 100_000, len(q[::997]))
+    else:
+        q = np.where(rng.random(n) < 0.5, -5, 200_000)
+    q = q.astype(dtype)
+    want = np.searchsorted(b, q, side="right" if right else "left")
+    assert kb.count_plan(len(b), 64) == (9, 40)
+    for splitters, window in ((64, 128), (kb.SPLITTERS, kb.WINDOW)):
+        got, routes = bucketize_tiles_emulated(b, q, right, splitters, window,
+                                               kb.COUNT_TILE)
+        np.testing.assert_array_equal(got, want, err_msg=case)
+        if case == "sorted":
+            assert set(routes) == {"window"}, routes
+        if case in ("random", "out_of_range"):
+            assert set(routes) == {"splitter"}, routes
+    assert_same(want.astype(np.int32),
+                kb.bucketize_count_kernel(_t(b), _t(q), right))
+
+
+def test_bucketize_count_plan_at_main_path_shapes():
+    """Q3's join probe (2^23 boundaries) stages every 2^11-th: 4096
+    splitters, two L2 rounds a tile bound; Q17's semi-join (97,532) every
+    2^5-th."""
+    assert kb.count_plan(1 << 23) == (11, 4096)
+    assert kb.count_plan(97_532) == (5, 3048)
+    assert kb.count_plan(1) == (0, 1)
+    assert kb.count_plan(kb.SPLITTERS) == (0, kb.SPLITTERS)
+    assert kb.count_plan(kb.SPLITTERS + 1) == (1, kb.SPLITTERS // 2 + 1)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "max", "min"])
+@pytest.mark.parametrize("g", [1, 16, 512])
+def test_ref_segment_reduce_drops_like_reference(rng, reduce, g):
+    """The plain version on ids that are more than 90% dropped (at g,
+    above, and below -g, which JAX's scatter drops too) equals the
+    reference's ``.at[ids].<how>(mode="drop")`` exactly, int32 and
+    float32."""
+    n = 5_000
+    ids = _mostly_dropped_ids(rng, n, g, negative_below=-g - 1)
+    assert ((ids < 0) | (ids >= g)).mean() > 0.9
+    for dtype in (np.float32, np.int32):
+        if reduce != "sum" and dtype == np.int32:
+            continue
+        v = rng.integers(-1000, 1000, n).astype(dtype)
+        want = jref.ref_segment_reduce(jnp.asarray(v), jnp.asarray(ids), g,
+                                       reduce)
+        assert_same(want, ref.ref_segment_reduce(_t(v), _t(ids), g, reduce),
+                    f"{reduce} {dtype.__name__}")
+
+
+def test_drop_slots_spread_over_the_spare_block(rng):
+    """Dropped ids move to ``size + (position & 1023)``: two dropped
+    updates share an address only when their positions agree modulo
+    ``SPARE_SLOTS``; ids in range stay."""
+    n, size = 5_000, 7
+    ids = _mostly_dropped_ids(rng, n, size)
+    got = ref.drop_slots(_t(ids), size).numpy()
+    keep = (ids >= 0) & (ids < size)
+    np.testing.assert_array_equal(got[keep], ids[keep])
+    pos = np.flatnonzero(~keep)
+    np.testing.assert_array_equal(got[~keep],
+                                  size + (pos & (ref.SPARE_SLOTS - 1)))
+    assert ref.SPARE_SLOTS >= 1024

@@ -357,3 +357,99 @@ def test_partitioned_validate_catches_stale_zone_map(rng):
     t.partitions[2].zone_hi["k"] = t.partitions[2].zone_hi["k"] + 5
     with pytest.raises(ValidationError, match="zone map"):
         t.validate()
+
+
+# ---------------------------------------------------------------------------
+# empty partitions forced to RLE: zero rows encode to zero runs
+# ---------------------------------------------------------------------------
+
+
+def _entries(col) -> int:
+    """Runs (and index points) an RLE or RLE+Index column holds."""
+    if hasattr(col, "rle"):
+        return int(col.rle.n) + int(col.idx.n)
+    return int(col.n)
+
+
+def _rle_oracle_data():
+    rng = np.random.default_rng(16)
+    return {"a": np.sort(rng.integers(0, 5, 50)).astype(np.int32),
+            "b": rng.random(50).astype(np.float32)}
+
+
+def _rle_oracle_run(make_query, op):
+    """Run ``op`` (filter / groupby / order_by) on ``make_query()`` and on
+    the numpy oracle of ``_rle_oracle_data``; assert equal answers."""
+    d = _rle_oracle_data()
+    a, b = d["a"], d["b"]
+    if op == "filter":
+        got = make_query().filter(col("a") <= 2).aggregate(
+            {"s": ("sum", "b"), "c": ("count", None)}).run()
+        sel = a <= 2
+        assert int(got["c"]) == int(sel.sum())
+        np.testing.assert_allclose(float(got["s"]),
+                                   float(b[sel].astype(np.float64).sum()),
+                                   rtol=1e-5)
+    elif op == "groupby":
+        got = make_query().filter(col("b") < 0.7).groupby(
+            ["a"], {"s": ("sum", "b"), "c": ("count", None)},
+            num_groups_cap=8).run()
+        sel = b < 0.7
+        keys, counts = np.unique(a[sel], return_counts=True)
+        ng = int(got.num_groups)
+        assert ng == len(keys)
+        np.testing.assert_array_equal(np.asarray(got.keys["a"])[:ng], keys)
+        np.testing.assert_array_equal(np.asarray(got.aggs["c"])[:ng], counts)
+        sums = [b[sel & (a == k)].astype(np.float64).sum() for k in keys]
+        np.testing.assert_allclose(np.asarray(got.aggs["s"])[:ng], sums,
+                                   rtol=1e-5)
+    else:
+        got = make_query().filter(col("b") < 0.7).order_by(
+            ["a", "b"], descending=[True, False], limit=7, cols=["b"]).run()
+        rows = np.flatnonzero(b < 0.7)
+        order = np.lexsort((rows, b[rows], -a[rows].astype(np.int64)))[:7]
+        np.testing.assert_array_equal(np.asarray(got.positions), rows[order])
+        np.testing.assert_array_equal(np.asarray(got.columns["b"]),
+                                      b[rows[order]])
+
+
+@pytest.mark.parametrize("op", ["filter", "groupby", "order_by"])
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("enc", ["rle", "rle_index"])
+@pytest.mark.parametrize("cuts", [[0, 0, 10, 50], [10, 10, 30], [50, 50]])
+def test_duplicate_cuts_forced_rle_match_oracle(cuts, enc, pack, op):
+    """Duplicate cuts leave empty partitions; forced to RLE (or RLE+Index)
+    they encode to zero runs, validate, and the streamed filter, group-by
+    and ORDER BY give the numpy oracle's answers. (The reference raises
+    here, ROADMAP C2, so the oracle is numpy.)"""
+    t = TP.PartitionedTable.from_arrays(
+        _rle_oracle_data(), cfg=TCFG, boundaries=cuts, encodings={"a": enc},
+        pack=pack, device=CPU)
+    empty = [p for p in t.partitions if p.rows == 0]
+    assert empty
+    for p in empty:
+        assert _entries(p.table.columns["a"]) == 0
+    t.validate()
+    _rle_oracle_run(lambda: TP.PartitionedQuery(t), op)
+
+
+@pytest.mark.parametrize("op", ["filter", "groupby", "order_by"])
+@pytest.mark.parametrize("enc", ["rle", "rle_index"])
+def test_zero_row_table_forced_rle(enc, op):
+    """A resident table of zero rows forced to RLE: zero runs, and every
+    query answers empty (masks, run alignment and the group-by over zero
+    segments)."""
+    empty = {k: v[:0] for k, v in _rle_oracle_data().items()}
+    t = TTable.from_arrays(empty, cfg=TCFG, encodings={"a": enc}, device=CPU)
+    assert _entries(t.columns["a"]) == 0
+    q = TQuery(t)
+    if op == "filter":
+        got = q.filter(col("a") <= 2).aggregate(
+            {"s": ("sum", "b"), "c": ("count", None)}).run()
+        assert int(got["c"]) == 0 and float(got["s"]) == 0.0
+    elif op == "groupby":
+        got = q.groupby(["a"], {"c": ("count", None)}, num_groups_cap=8).run()
+        assert int(got.num_groups) == 0
+    else:
+        got = q.order_by(["a"], limit=3).run()
+        assert len(np.asarray(got.positions)) == 0

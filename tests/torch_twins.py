@@ -318,3 +318,177 @@ def assert_payload_close(want, got, what="", rtol=1e-4):
             assert_close(w, g, f"{what} {k}", rtol=rtol, atol=1e-6)
         else:
             assert_same(w, g, f"{what} {k}")
+
+
+# ---------------------------------------------------------------------------
+# Numpy repeats of the redesigned kernels' plans (csrc/segment_reduce.cu,
+# csrc/bucketize.cu's tiled route): the CPU tests check the plans, the
+# card's tests hold the kernels to them.
+# ---------------------------------------------------------------------------
+
+
+def _butterfly_lane0(a):
+    """Lane 0 of an xor-shuffle sum over the last axis (32 lanes)."""
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        a = a + a[..., lanes ^ off]
+    return a[..., 0]
+
+
+def _sum_in_order(parts, zero):
+    s = zero
+    for p in parts:
+        s = s + p
+    return s
+
+
+def segment_sum_emulated(values, ids, g, grid=None):
+    """``segment_sum_kernel``'s sums with its order of adds, in numpy:
+    float32 values in float32, int32 values as uint32 (returned as int32).
+    Chunks of ``segment_reduce.plan(g)``; a block of 256 threads takes a
+    chunk in 1024-row steps, thread t rows 4t .. 4t + 3 of a step; the
+    one, small and match routes' partials; the final pass per group
+    (threads over chunks t, t + 256, ..., a butterfly, the 8 warps in
+    order). ``grid`` blocks take the chunks grid-stride (default: one a
+    chunk): the chunk -> block map changes no add."""
+    from repro_torch.kernels import segment_reduce as ks
+    route, chunk = ks.plan(g)
+    is_float = values.dtype == np.float32
+    acc_t = np.float32 if is_float else np.uint32
+    v_all = (values.astype(np.float32) if is_float
+             else values.astype(np.int64).astype(np.uint32))
+    zero = acc_t(0)
+    n = len(values)
+    nchunks = -(-n // chunk)
+    partial = np.zeros((g, nchunks), acc_t)
+    grid = nchunks if grid is None else grid
+    order = [c for b in range(grid) for c in range(b, nchunks, grid)]
+    with np.errstate(over="ignore"):  # int32 sums wrap, as uint32
+        return _segment_sum_chunks(v_all, ids, g, route, chunk, order,
+                                   partial, zero, acc_t, is_float)
+
+
+def _segment_sum_chunks(v_all, ids, g, route, chunk, order, partial, zero,
+                        acc_t, is_float):
+    from repro_torch.kernels import segment_reduce as ks
+    n, nchunks = len(v_all), partial.shape[1]
+    for c in order:
+        lo, hi = c * chunk, min((c + 1) * chunk, n)
+        steps = -(-(hi - lo) // ks.STEP)
+        vv = np.zeros(steps * ks.STEP, acc_t)
+        ii = np.full(steps * ks.STEP, -1, np.int64)
+        vv[:hi - lo], ii[:hi - lo] = v_all[lo:hi], ids[lo:hi]
+        vv = vv.reshape(steps, ks.THREADS, ks.PER_THREAD)
+        ii = ii.reshape(steps, ks.THREADS, ks.PER_THREAD)
+        if route == ks.ONE:
+            acc = np.zeros(ks.THREADS, acc_t)
+            for s in range(steps):
+                for j in range(ks.PER_THREAD):
+                    acc = np.where(ii[s, :, j] == 0, acc + vv[s, :, j], acc)
+            warps = _butterfly_lane0(acc.reshape(8, 32))
+            partial[0, c] = _sum_in_order(warps, zero)
+        elif route == ks.SMALL:
+            col = np.zeros((g, ks.THREADS), acc_t)
+            t = np.arange(ks.THREADS)
+            for s in range(steps):
+                for j in range(ks.PER_THREAD):
+                    live = (ii[s, :, j] >= 0) & (ii[s, :, j] < g)
+                    k, tt = ii[s, live, j], t[live]
+                    col[k, tt] = col[k, tt] + vv[s, live, j]
+            lanes = _sum_in_order(col.reshape(g, 8, 32).transpose(1, 0, 2),
+                                  np.zeros((g, 32), acc_t))
+            partial[:, c] = _butterfly_lane0(lanes)
+        else:
+            wacc = np.zeros((8, g), acc_t)
+            for s in range(steps):
+                for j in range(ks.PER_THREAD):
+                    for w in range(8):
+                        wid = ii[s, 32 * w:32 * w + 32, j]
+                        wv = vv[s, 32 * w:32 * w + 32, j]
+                        for k in np.unique(wid[(wid >= 0) & (wid < g)]):
+                            wacc[w, k] = wacc[w, k] + _sum_in_order(
+                                wv[wid == k], zero)
+            partial[:, c] = _sum_in_order(wacc, np.zeros(g, acc_t))
+    tsum = np.zeros((g, ks.THREADS), acc_t)
+    for i in range(-(-nchunks // ks.THREADS)):
+        b = i * ks.THREADS + np.arange(ks.THREADS)
+        inside = b < nchunks
+        tsum = np.where(inside, tsum + partial[:, np.minimum(b, nchunks - 1)],
+                        tsum)
+    warps = _butterfly_lane0(tsum.reshape(g, 8, 32))
+    out = _sum_in_order(warps.T, np.zeros(g, acc_t))
+    return out if is_float else out.view(np.int32)
+
+
+def bucketize_tiles_emulated(b, q, right=True, max_splitters=4096,
+                             window=2048, tile=2048):
+    """``bucketize_count_kernel``'s tiled route in numpy: counts and the
+    route each tile took ("window" or "splitter"). Splitter s of the
+    staged ones is b[s << shift]; a tile's min and max (NaN above every
+    number) are counted by the splitters and rounds of 64 probes; the
+    window route searches b[lo, hi), the splitter route finishes each
+    query's last ``shift`` levels."""
+    b, q = np.asarray(b), np.asarray(q)
+    nb = len(b)
+
+    def counted(bv, qv):
+        with np.errstate(invalid="ignore"):
+            return ~(bv > qv) if right else ~(bv >= qv)
+
+    shift = 0
+    while ((nb - 1) >> shift) + 1 > max_splitters:
+        shift += 1
+    nsplit = ((nb - 1) >> shift) + 1
+    split = b[np.arange(nsplit, dtype=np.int64) << shift]
+
+    def block_of(qv):
+        k = int(counted(split, qv).sum())
+        if k == 0:
+            return None
+        base = ((k - 1) << shift) + 1
+        return base, min(k << shift, nb) - base
+
+    def count_warp(qv):
+        found = block_of(qv)
+        if found is None:
+            return 0
+        base, ln = found
+        probes = np.arange(64, dtype=np.int64)
+        while ln > 64:
+            step = -(-ln // 64)
+            p = base + (probes + 1) * step - 1
+            ok = (p < base + ln) & counted(b[np.minimum(p, nb - 1)], qv)
+            m = int(ok.sum())
+            base, ln = base + m * step, min(ln - m * step, step)
+        p = base + probes
+        ok = (p < base + ln) & counted(b[np.minimum(p, nb - 1)], qv)
+        return base + int(ok.sum())
+
+    def splitter_count(qv):
+        found = block_of(qv)
+        if found is None:
+            return 0
+        base, ln = found
+        rel = 0
+        for lev in range(shift - 1, -1, -1):
+            cand = rel + (1 << lev)
+            if cand <= ln and counted(b[base + cand - 1], qv):
+                rel = cand
+        return base + rel
+
+    out = np.zeros(len(q), np.int32)
+    routes = []
+    for t0 in range(0, len(q), tile):
+        qt = q[t0:t0 + tile]
+        nan = np.isnan(qt) if qt.dtype.kind == "f" else np.zeros(len(qt), bool)
+        qmin = qt[~nan].min() if (~nan).any() else qt[0]
+        qmax = qt[nan][0] if nan.any() else qt.max()
+        lo, hi = count_warp(qmin), count_warp(qmax)
+        if hi - lo <= window:
+            routes.append("window")
+            side = "right" if right else "left"
+            out[t0:t0 + tile] = lo + np.searchsorted(b[lo:hi], qt, side=side)
+        else:
+            routes.append("splitter")
+            out[t0:t0 + tile] = [splitter_count(x) for x in qt]
+    return out, routes

@@ -17,7 +17,12 @@ first error:
    kernels every bit width of {1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32},
    values straddling lanes, N = 0 and 1, negative offsets, width-32 wrap,
    boundaries above the shared-memory route, a partially covered RLE with
-   ``n < cap``; for topk int32 and float32, n in {0, 1, 7, 2047, 2048,
+   ``n < cap``; for both RLE decoders the draws of ``RLE_DRAWS`` (long
+   runs, a run a row, short runs with gaps and a fill, ``n`` below the
+   filled slots and 0, rows past every end, repeated ends, ragged row
+   counts; int32 and float32 bit for bit, bit widths 1, 4, 13 and 32) at
+   the resident grid and capped grids, and about 2^21 short runs over
+   2^23 rows; for topk int32 and float32, n in {0, 1, 7, 2047, 2048,
    2049, 1_000_003} by k in {1, 8, 37, 128, 256}, all-equal inputs,
    INT32_MIN rows, +-inf, signed zeros, an input of a survivor pass,
    3M-key ascending, descending, tied and nearly-all-INT32_MIN inputs,
@@ -39,7 +44,9 @@ first error:
    ``CompressionConfig(plain_threshold=1_000)`` onto the card; Q1, Q3,
    Q6, Q17 and Q19 run through ``repro_torch`` ``Query``. Every answer is
    checked against a numpy oracle (integers exact, float sums rtol=1e-4)
-   and every re-run is bit-identical. Launch counts are zeroed just
+   and every re-run is bit-identical. Each query's line tallies the RLE
+   decoders' launches by shape class (``decoder_shapes_per_run``, as the
+   streamed and ranked lines do). Launch counts are zeroed just
    before this phase and read just after it; the run fails if any of the
    four resident-path kernels was not launched.
 4. Out-of-core phase: the same LINEITEM arrays of Q1, Q6, Q17 and Q3 and
@@ -89,14 +96,18 @@ first error:
    beside ``index_add_`` at G = 1 and 16 at 59,986,052 and 2^23 rows and
    at G = 512 at 59,986,052, float32 and int32; ``bucketize_count_kernel``
    beside ``torch.searchsorted`` at Q17's semi-join shape and at Q3's
-   shape with random queries.
+   shape with random queries. The two RLE decoders add their device time
+   a call (``device_ms``, ``torch.profiler``).
 7. A ``launches`` line (per phase: launches, and a tally by shape class,
    ``_build.SHAPES``), a ``{"kernels": [...]}`` summary line, then as the
    last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Other modes, for measurements (they stop early and print no result
 line): ``--kernel-bench`` times every kernel at the main path's shapes on
-seeded inputs; ``--queries Q3,Q17`` runs only those queries, resident
+seeded inputs (and both RLE decoders at a short-run shape too: about 2^21
+runs of 1-4 rows with gaps over 2^23 rows; ``unpack_kernel`` and
+``bucketize_packed_kernel`` also at the streamed path's smaller launch
+classes), per launch, back to back and on the device; ``--queries Q3,Q17`` runs only those queries, resident
 and streamed (with ``--profile``, their profiles); ``--src DIR`` imports
 ``repro_torch`` from another checkout's ``src`` (its kernels build
 there), so one call can time a parent tree and this one in turns.
@@ -551,8 +562,8 @@ def host_us(fn, batch=20, reps=30):
 
 def device_us(fn, key, reps=50):
     """Device microseconds one call of ``fn`` takes: the CUDA time
-    ``torch.profiler`` books to kernels whose name holds ``key``, over
-    ``reps`` calls."""
+    ``torch.profiler`` books to kernels whose name holds ``key`` (every
+    kernel for ``""``), over ``reps`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -564,7 +575,8 @@ def device_us(fn, key, reps=50):
     total = 0.0
     for e in prof.key_averages():
         if key in e.key and not e.key.startswith("aten::"):
-            total += getattr(e, "device_time_total", None) or e.cuda_time_total
+            t = getattr(e, "device_time_total", None)
+            total += getattr(e, "cuda_time_total", 0) if t is None else t
     return total / reps if total else None
 
 
@@ -706,6 +718,28 @@ def _steps(n):
     return max(1, int(n).bit_length())
 
 
+RLE_DECODERS = ("rle_decode_kernel", "rle_decode_packed_kernel")
+
+
+def decoder_tally():
+    """A copy of the two RLE decoders' launch tallies by shape class."""
+    from repro_torch.kernels import _build
+    return {k: dict(_build.SHAPES[k]) for k in RLE_DECODERS}
+
+
+def decoder_shapes(before, runs=1):
+    """The two RLE decoders' launches by shape class since ``before`` (a
+    ``decoder_tally()``), per run; decoders not launched are left out."""
+    from repro_torch.kernels import _build
+    out = {}
+    for k in RLE_DECODERS:
+        d = {c: (v - before[k].get(c, 0)) // runs
+             for c, v in _build.SHAPES[k].items()}
+        if any(d.values()):
+            out[k] = {c: v for c, v in d.items() if v}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernel edge cases against the plain versions
 # ---------------------------------------------------------------------------
@@ -803,6 +837,31 @@ def kernel_edge_cases(dev):
              ref.ref_rle_decode(vv, ss, ee, nn, nrows, fill),
              f"rle_decode_kernel {what}")
         cases += 1
+    # the tile walk's draws (csrc/rle_tile.cuh): one-run, window and L2
+    # tiles, int32 and float32 bit for bit, at the resident grid and two
+    # caps; then the short-run shape at full size
+    for i, name in enumerate(RLE_DRAWS):
+        vals, starts, ends, n, nrows, fill = rle_draw(
+            name, np.random.default_rng(i))
+        for v in (vals, (vals * np.float32(0.37)).astype(np.float32)):
+            vv, ss, ee = t(v), t(starts), t(ends)
+            nn = torch.tensor(n, dtype=torch.int32, device=dev)
+            want = ref.ref_rle_decode(vv, ss, ee, nn, nrows, fill)
+            for grid in (None, 1, 3):
+                got = rle_decode_kernel(vv, ss, ee, nn, nrows, fill,
+                                        max_blocks=grid)
+                same(got.view(torch.int32), want.view(torch.int32),
+                     f"rle_decode_kernel {name} {v.dtype} grid={grid}")
+                cases += 1
+    starts, ends = short_runs(rng, 1 << 23)
+    vv, ss, ee = t(rng.integers(-99, 99, len(starts)).astype(np.int32)), \
+        t(starts.astype(np.int32)), t(ends.astype(np.int32))
+    nn = torch.tensor(len(starts), dtype=torch.int32, device=dev)
+    want = ref.ref_rle_decode(vv, ss, ee, nn, 1 << 23, -1)
+    for grid in (None, 5):
+        same(rle_decode_kernel(vv, ss, ee, nn, 1 << 23, -1, max_blocks=grid),
+             want, f"rle_decode_kernel short runs over 2^23 rows grid={grid}")
+        cases += 1
 
     s_cases = [
         ("empty values", 0, 4, None),
@@ -843,7 +902,7 @@ def kernel_edge_cases(dev):
     return cases
 
 
-def _packed_values(rng, b, n, lo):
+def packed_values(rng, b, n, lo):
     """``n`` values of a ``b``-bit domain from ``lo`` (the full int32 range
     at b = 32), their packed lanes as int32 (host), and the offset."""
     from repro_torch.core import compress
@@ -853,6 +912,87 @@ def _packed_values(rng, b, n, lo):
         hi = lo + (1 << b) - 1
     v = rng.integers(lo, hi, n, endpoint=True).astype(np.int64)
     return v, compress.pack_array(v, lo, b).view(np.int32), lo
+
+
+def short_runs(rng, nrows, first=0):
+    """(starts, ends) of runs of 1-4 rows after gaps of 0-3 rows, from row
+    ``first`` to ``nrows``: about one run every 4 rows."""
+    lens = rng.integers(1, 5, nrows)
+    gaps = rng.integers(0, 4, nrows)
+    starts = first + np.cumsum(gaps + np.concatenate([[0], lens[:-1]]))
+    ends = starts + lens - 1
+    keep = ends < nrows
+    return starts[keep], ends[keep]
+
+
+RLE_DRAWS = ["long_runs", "single_rows", "short_runs_gaps", "n_below",
+             "n_zero", "past_ends", "repeated_ends", "ragged", "tiny_ragged",
+             "mixed"]
+
+
+def rle_draw(name, rng):
+    """(values, starts, ends, n, nrows, fill) of a seeded RLE draw for the
+    tile walk of ``csrc/rle_tile.cuh``: int32 values, int32 starts/ends
+    sentinel-padded to the capacity (ends non-decreasing)."""
+    def pad(starts, ends, cap, nrows):
+        k = cap - len(starts)
+        return (np.concatenate([starts, np.full(k, nrows)]).astype(np.int32),
+                np.concatenate([ends, np.full(k, nrows)]).astype(np.int32))
+
+    def cover(nrows, k):  # k runs covering every row
+        starts = np.sort(rng.choice(np.arange(1, nrows), k - 1, replace=False))
+        starts = np.concatenate([[0], starts])
+        return starts, np.concatenate([starts[1:] - 1, [nrows - 1]])
+
+    fill = 0
+    if name == "long_runs":  # a few runs over many tiles
+        nrows = 40_000
+        starts, ends = cover(nrows, 12)
+        cap, n = 16, 12
+    elif name == "single_rows":  # a run a row: a window of 256 runs a tile
+        nrows = 3_000
+        starts = ends = np.arange(nrows)
+        cap = n = nrows
+    elif name in ("short_runs_gaps", "n_below", "n_zero"):
+        nrows = 9_000
+        starts, ends = short_runs(rng, nrows)
+        cap = len(starts) + 5
+        n = {"short_runs_gaps": len(starts), "n_below": len(starts) // 2,
+             "n_zero": 0}[name]
+        fill = -5
+    elif name == "past_ends":  # no padding: rows past the last end clamp
+        nrows = 6_000
+        starts, ends = cover(2_000, 40)
+        cap = n = 40
+        fill = 3
+    elif name == "repeated_ends":  # > 256 ends in a tile: the L2 route
+        nrows = 4_096
+        ends = np.sort(rng.integers(0, 1_024, 3_000))
+        starts = ends - rng.integers(0, 3, 3_000)
+        cap, n = 3_000, 2_900
+        fill = 7
+    elif name == "ragged":  # nrows a multiple of neither the tile nor 4
+        nrows = 5_003
+        starts, ends = cover(nrows, 300)
+        ends[::7] -= 1  # gaps of one row
+        cap, n = 310, 300
+        fill = -1
+    elif name == "tiny_ragged":
+        nrows = 3
+        starts, ends = np.array([0, 2]), np.array([0, 2])
+        cap, n = 4, 2
+        fill = 9
+    elif name == "mixed":  # long runs, then a stretch of short ones
+        nrows = 12_000
+        ls, le = cover(6_000, 5)
+        ss, se = short_runs(rng, nrows, 6_000)
+        starts, ends = np.concatenate([ls, ss]), np.concatenate([le, se])
+        cap = n = len(starts)
+    else:
+        raise ValueError(name)
+    starts, ends = pad(np.asarray(starts), np.asarray(ends), cap, nrows)
+    vals = rng.integers(-1000, 1000, cap).astype(np.int32)
+    return vals, starts, ends, n, nrows, fill
 
 
 def packed_edge_cases(dev):
@@ -874,7 +1014,7 @@ def packed_edge_cases(dev):
         # ragged tail; negative offsets, and the full range at b = 32
         for n in (0, 1, 33, 100_003):
             for lo in (-(1 << min(b, 31) - 1), 12345):
-                v, w, off = _packed_values(rng, b, n, lo)
+                v, w, off = packed_values(rng, b, n, lo)
                 ww = t(w)
                 got = ku.unpack_kernel(ww, b, off, n)
                 same(got, ref.ref_unpack(ww, b, off, n), f"unpack b={b} n={n}")
@@ -896,7 +1036,7 @@ def packed_edge_cases(dev):
                        (24, ku.MAX_SMEM_BOUNDARIES + 1000, "beyond shared"),
                        (32, 1000, "width 32"), (1, 2, "width 1")):
         for n in (0, 1, 77_777):
-            v, w, off = _packed_values(rng, b, n, -3)
+            v, w, off = packed_values(rng, b, n, -3)
             lo_b = int(v.min()) - 2 if n else -5
             hi_b = int(v.max()) + 2 if n else 5
             bnd = np.sort(rng.integers(lo_b, hi_b, nb, endpoint=True))
@@ -929,7 +1069,7 @@ def packed_edge_cases(dev):
             ("one row", 1, 1, 1, 1, 0, 1, 0),
             ("width 32", 40_000, 64, 64, 64, 2, 32, 3)):
         starts, ends = runs(nrows, k, cap, gap)
-        v, w, off = _packed_values(rng, b, cap, -50)
+        v, w, off = packed_values(rng, b, cap, -50)
         ww, ss, ee = t(w), t(starts), t(ends)
         nn = torch.tensor(n_valid, dtype=torch.int32, device=dev)
         same(ku.rle_decode_packed_kernel(ww, b, off, cap, ss, ee, nn, nrows,
@@ -937,6 +1077,31 @@ def packed_edge_cases(dev):
              ref.ref_rle_decode_packed(ww, b, off, cap, ss, ee, nn, nrows, fill),
              f"rle_decode_packed {what}")
         cases += 1
+    for i, name in enumerate(RLE_DRAWS):  # the tile walk's draws
+        _, starts, ends, n_valid, nrows, fill = rle_draw(
+            name, np.random.default_rng(100 + i))
+        cap = len(starts)
+        ss, ee = t(starts), t(ends)
+        nn = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        for b in (1, 4, 13, 32):
+            v, w, off = packed_values(rng, b, cap, -50)
+            ww = t(w)
+            want = ref.ref_rle_decode_packed(ww, b, off, cap, ss, ee, nn,
+                                             nrows, fill)
+            for grid in (None, 2):
+                same(ku.rle_decode_packed_kernel(ww, b, off, cap, ss, ee, nn,
+                                                 nrows, fill, max_blocks=grid),
+                     want, f"rle_decode_packed {name} b={b} grid={grid}")
+                cases += 1
+    starts, ends = short_runs(rng, 1 << 23)
+    cap = len(starts)
+    v, w, off = packed_values(rng, 4, cap, 0)
+    ww, ss, ee = t(w), t(starts.astype(np.int32)), t(ends.astype(np.int32))
+    nn = torch.tensor(cap, dtype=torch.int32, device=dev)
+    same(ku.rle_decode_packed_kernel(ww, 4, off, cap, ss, ee, nn, 1 << 23, 0),
+         ref.ref_rle_decode_packed(ww, 4, off, cap, ss, ee, nn, 1 << 23, 0),
+         "rle_decode_packed short runs over 2^23 rows")
+    cases += 1
     torch.cuda.synchronize()
     return cases
 
@@ -1255,6 +1420,7 @@ def kernel_timing(launches, largest, part_keys):
                 v, s, e, n, nrows, fill)
             plain_fn = lambda: ref.ref_rle_decode(  # noqa: E731
                 v, s, e, n, nrows, fill)
+            shape["device_ms"] = device_us(kern_fn, "rle") / 1e3
         elif name == "unpack_kernel":
             w, b, off, n = (rec["words"], rec["bit_width"], rec["offset"],
                             rec["nvals"])
@@ -1314,6 +1480,7 @@ def kernel_timing(launches, largest, part_keys):
             nbytes = 4 * w.shape[0] + 8 * cap + 4 + 4 * nrows
             nops = nrows * _steps(cap)
             kern_fn, plain_fn = kern, plain
+            shape["device_ms"] = device_us(kern, "rle") / 1e3
         elif name == "topk_kernel":
             x, k = rec["values"], rec["k"]
             got, want = kt.topk_kernel(x, k), ref.topk(x, k)
@@ -1457,6 +1624,14 @@ def bench_inputs(dev):
     vals = ints(0, 100, 550)
     cnt = torch.tensor(550, dtype=i32, device=dev)
     out.append(("rle_decode_kernel", "capacity 550 x 59,986,052", lambda: rle_decode_kernel(vals, starts, ends, cnt, n), lambda: ref.ref_rle_decode(vals, starts, ends, cnt, n), True, 12 * 550 + 4 + 4 * n, n * _steps(550)))  # noqa: E501
+    # the short-run shape: about 2^21 runs of 1-4 rows with gaps, 2^23 rows
+    srows = 1 << 23
+    ss, se = short_runs(np.random.default_rng(21), srows)
+    nsr = len(ss)
+    sst, sen = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (ss, se))
+    svals = ints(0, 100, nsr)
+    scnt = torch.tensor(nsr, dtype=i32, device=dev)
+    out.append(("rle_decode_kernel", f"{nsr:,} short runs x 2^23", lambda: rle_decode_kernel(svals, sst, sen, scnt, srows), lambda: ref.ref_rle_decode(svals, sst, sen, scnt, srows), True, 12 * nsr + 4 + 4 * srows, srows * _steps(nsr)))  # noqa: E501
     int32_sums = hasattr(ks, "plan")  # the int32 instantiation
     for rows, groups in ((n, (1, 16, 512)), (1 << 23, (1, 16))):
         for g in groups:
@@ -1479,9 +1654,19 @@ def bench_inputs(dev):
                             8 * rows + 4 * g, rows))
     words24 = ints(-(2**31), 2**31 - 1, ku.nwords_for(1 << 23, 24))
     out.append(("unpack_kernel", "2^23 x 24 bits", lambda: ku.unpack_kernel(words24, 24, 0, 1 << 23), lambda: ref.ref_unpack(words24, 24, 0, 1 << 23), True, 4 * words24.shape[0] + 4 * (1 << 23), 1 << 23))  # noqa: E501
+    # smaller launch classes of the streamed path (_build.SHAPES), so each
+    # class is priced at its own time
+    for nv in (8, 4096, 1 << 17, 1 << 19):
+        wv = ints(-(2**31), 2**31 - 1, ku.nwords_for(nv, 24))
+        out.append(("unpack_kernel", f"{nv:,} x 24 bits",
+                    lambda wv=wv, nv=nv: ku.unpack_kernel(wv, 24, 0, nv),
+                    lambda wv=wv, nv=nv: ref.ref_unpack(wv, 24, 0, nv), True,
+                    4 * wv.shape[0] + 4 * nv, nv))
     pb = torch.sort(ints(0, 1 << 21, 97_533)).values
     words21 = ints(-(2**31), 2**31 - 1, ku.nwords_for(524_288, 21))
     out.append(("bucketize_packed_kernel", "97,533 x 524,288 x 21 bits", lambda: ku.bucketize_packed_kernel(pb, words21, 21, 0, 524_288), lambda: ref.ref_bucketize_packed(pb, words21, 21, 0, 524_288), True, 4 * (97_533 + words21.shape[0] + 524_288), 524_288 * _steps(97_533)))  # noqa: E501
+    words21s = ints(-(2**31), 2**31 - 1, ku.nwords_for(65_536, 21))
+    out.append(("bucketize_packed_kernel", "97,533 x 65,536 x 21 bits", lambda: ku.bucketize_packed_kernel(pb, words21s, 21, 0, 65_536), lambda: ref.ref_bucketize_packed(pb, words21s, 21, 0, 65_536), True, 4 * (97_533 + words21s.shape[0] + 65_536), 65_536 * _steps(97_533)))  # noqa: E501
     rows = 1 << 23
     pst = torch.sort(torch.randperm(rows, device=dev, generator=gen)[:128]
                      ).values.to(i32)
@@ -1491,6 +1676,8 @@ def bench_inputs(dev):
     words4 = ints(-(2**31), 2**31 - 1, ku.nwords_for(128, 4))
     pcnt = torch.tensor(128, dtype=i32, device=dev)
     out.append(("rle_decode_packed_kernel", "capacity 128 x 4 bits x 2^23", lambda: ku.rle_decode_packed_kernel(words4, 4, 0, 128, pst, pen, pcnt, rows), lambda: ref.ref_rle_decode_packed(words4, 4, 0, 128, pst, pen, pcnt, rows), True, 4 * words4.shape[0] + 8 * 128 + 4 + 4 * rows, rows * _steps(128)))  # noqa: E501
+    swords = ints(-(2**31), 2**31 - 1, ku.nwords_for(nsr, 4))
+    out.append(("rle_decode_packed_kernel", f"{nsr:,} short runs x 4 bits x 2^23", lambda: ku.rle_decode_packed_kernel(swords, 4, 0, nsr, sst, sen, scnt, srows), lambda: ref.ref_rle_decode_packed(swords, 4, 0, nsr, sst, sen, scnt, srows), True, 4 * swords.shape[0] + 8 * nsr + 4 + 4 * srows, srows * _steps(nsr)))  # noqa: E501
     keys = ints(-(2**31), 2**31 - 1, n)
     out.append(("topk_kernel", "59,986,052 int32, k=128", lambda: kt.topk_kernel(keys, 128), lambda: ref.topk(keys, 128), True, 4 * n + 8 * 128, n))  # noqa: E501
     return out
@@ -1499,8 +1686,10 @@ def bench_inputs(dev):
 def kernel_bench(dev):
     """Every kernel at the main path's shapes (``bench_inputs``): each
     call held against its plain version, then its per-launch ms (events
-    around one call, median of 30) and back-to-back ms, beside the bound.
-    One JSON line a shape; the list is returned."""
+    around one call, median of 30), back-to-back ms and device ms (the
+    kernels' time a call in ``torch.profiler``, without the host's
+    dispatch), beside the bound. One JSON line a shape; the list is
+    returned."""
     import torch
     rows = []
     for name, label, call, plain, exact, nbytes, nops in bench_inputs(dev):
@@ -1516,8 +1705,10 @@ def kernel_bench(dev):
                                            rtol=1e-4, atol=1e-2,
                                            err_msg=f"{name} {label}")
         ms = time_ms(call, iters=30)
+        dev_us = device_us(call, "")
         rec = {"bench": name, "shape": label, "ms": ms,
                "ms_back_to_back": time_b2b_ms(call, ms),
+               "device_ms": dev_us / 1e3 if dev_us else None,
                "bound_ms": bound_ms(nbytes, nops)[0]}
         print(json.dumps(rec), flush=True)
         rows.append(rec)
@@ -1604,7 +1795,7 @@ def query_phase(sf, dev, runs, profile_dir=None,
             shared["want"][name] = want
         del data
         q = build_query(name, table, orders_table, part_keys)
-        before = dict(_build.LAUNCHES)
+        before, tally = dict(_build.LAUNCHES), decoder_tally()
         results, times = [], []
         for _ in range(runs):
             torch.cuda.synchronize()
@@ -1628,7 +1819,9 @@ def query_phase(sf, dev, runs, profile_dir=None,
                "generate_s": gen_s, "ingest_s": ingest_s,
                "cold_ms": times[0], "warm_median_ms":
                statistics.median(times[1:]) if runs > 1 else None,
-               "launches_per_run": caused, "oracle": "ok",
+               "launches_per_run": caused,
+               "decoder_shapes_per_run": decoder_shapes(tally, runs),
+               "oracle": "ok",
                "rerun_bit_identical": True}
         if profile_dir is not None:
             rec["profile"] = profile_run(name, q, profile_dir)
@@ -1726,7 +1919,7 @@ def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None,
         results, times = {}, {0: [], 1: [], 2: []}
         moved = []
         for depth in (0, 1, 2, 0, 2, 0, 2):
-            before = dict(_build.LAUNCHES)
+            before, tally = dict(_build.LAUNCHES), decoder_tally()
             with dispatch.overrides(prefetch_depth=depth), \
                     telemetry.h2d_listener(lambda nb, tree: moved.append(nb)):
                 q = query(pt)
@@ -1734,6 +1927,7 @@ def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None,
             if depth == 2 and "launches_per_run" not in rec:
                 rec["launches_per_run"] = {
                     k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}
+                rec["decoder_shapes_per_run"] = decoder_shapes(tally)
             times[depth].append(ms)
             if depth in results and _bits(res) != _bits(results[depth]):
                 raise AssertionError(f"{name}: depth-{depth} re-run differs")
@@ -1828,11 +2022,12 @@ def ordering_phase(dev, shared, runs, profile_dir=None):
                "path": q._order_path(q.order_op())}
         results, times = [], []
         for i in range(runs):
-            before = dict(_build.LAUNCHES)
+            before, tally = dict(_build.LAUNCHES), decoder_tally()
             res, ms = _timed_run(q)
             if i == 0:
                 rec["launches_per_run"] = {
                     k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}
+                rec["decoder_shapes_per_run"] = decoder_shapes(tally)
             results.append(res)
             times.append(ms)
         check_ranked(name, results[0], want)
@@ -1858,7 +2053,7 @@ def ordering_phase(dev, shared, runs, profile_dir=None):
         pt = shared["packed"].pop(src)
         streamed, stimes, moved = {}, {0: [], 1: [], 2: []}, []
         for depth in (0, 1, 2, 0, 2):
-            before = dict(_build.LAUNCHES)
+            before, tally = dict(_build.LAUNCHES), decoder_tally()
             with dispatch.overrides(prefetch_depth=depth), \
                     telemetry.h2d_listener(lambda nb, tree: moved.append(nb)):
                 sq = build_ranked(name, pt, orders_table,
@@ -1877,6 +2072,7 @@ def ordering_phase(dev, shared, runs, profile_dir=None):
                     "merge_ms", "prefetch_depth")}
                 rec["streamed_launches_per_run"] = {
                     k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}
+                rec["streamed_decoder_shapes_per_run"] = decoder_shapes(tally)
         for depth in (1, 2):
             if _bits(streamed[depth]) != _bits(streamed[0]):
                 raise AssertionError(f"{name}: depth {depth} is not "

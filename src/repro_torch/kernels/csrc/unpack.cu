@@ -30,16 +30,20 @@
 //     (sized by smem_grid, which reads the occupancy once per kernel and
 //     device and opts in beyond 48 KB only); above that the bisection reads them through L2. There is no VMEM-style
 //     ceiling on the word stream: words are read through L2.
-//   * rle_decode_packed: rle_decode.cu's left bisection over `ends`, clamp to
-//     cap - 1, coverage test (row in [start, end] and run < n) and `fill`; the
-//     value is extracted at the run id. n is read on the device, so the caller
-//     never synchronises to learn it.
+//   * rle_decode_packed: rle_tile.cuh's tile walk (shared with rle_decode.cu),
+//     whose run value is extract() at the run id: once a tile for a tile
+//     inside one run (then a pure 16-byte write stream), once a run when a
+//     tile stages the window of runs it meets in shared memory. n is read on
+//     the device, so the caller never synchronises to learn it. What bounds
+//     it is the output, 4 bytes a row: the runs are few (128 at 4 bits on
+//     the main path) against 2^23 rows.
 // Each launch goes on the caller's stream, allocates nothing, and returns
 // cudaGetLastError(). Offsets are 64-bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bisect.cuh"
+#include "rle_tile.cuh"
 
 namespace {
 
@@ -104,30 +108,12 @@ __global__ void bucketize_packed_global_kernel(
   }
 }
 
-__global__ void rle_decode_packed_kernel(Packed p,
-                                         const int32_t* __restrict__ starts,
-                                         const int32_t* __restrict__ ends,
-                                         const int32_t* __restrict__ n_runs,
-                                         int64_t cap, int steps, int64_t nrows,
-                                         int32_t fill,
-                                         int32_t* __restrict__ out) {
-  const int64_t n = __ldg(n_runs);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       row < nrows; row += stride) {
-    int64_t lo = 0;  // count of ends < row
-    for (int k = steps - 1; k >= 0; --k) {
-      const int64_t cand = lo + (int64_t(1) << k);
-      if (cand <= cap && static_cast<int64_t>(__ldg(ends + (cand - 1))) < row)
-        lo = cand;
-    }
-    const int64_t run = lo < cap - 1 ? lo : cap - 1;
-    const int64_t s = __ldg(starts + run);
-    const int64_t e = __ldg(ends + run);
-    const bool covered = row >= s && row <= e && run < n;
-    out[row] = covered ? extract(p, run) : fill;
+struct PackedValues {  // run j's value: extract(p, j)
+  Packed p;
+  __device__ __forceinline__ uint32_t operator()(int64_t j) const {
+    return static_cast<uint32_t>(extract(p, j));
   }
-}
+};
 
 Packed make_packed(const void* words, int64_t nwords, int bits,
                    int32_t offset) {
@@ -200,22 +186,21 @@ extern "C" int repro_bucketize_packed(const void* boundaries, int64_t nb,
 }
 
 // words: the cap run values packed; starts/ends: int32 [cap]; n_runs: int32
-// scalar on the device; fill: int32; out: int32 [nrows].
+// scalar on the device; fill: int32; out: int32 [nrows], 16-byte aligned.
+// max_blocks > 0 caps the grid (the output does not depend on it).
 extern "C" int repro_rle_decode_packed(const void* words, int64_t nwords,
                                        int bits, int32_t offset,
                                        const void* starts, const void* ends,
                                        const void* n_runs, int64_t cap,
                                        int64_t nrows, int32_t fill, void* out,
-                                       void* stream) {
+                                       int64_t max_blocks, void* stream) {
   if (bits < 1 || bits > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (nrows == 0 || cap == 0) return 0;
-  rle_decode_packed_kernel<<<flat_grid(nrows), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      make_packed(words, nwords, bits, offset),
+  return repro::rle::launch_tiles(
+      PackedValues{make_packed(words, nwords, bits, offset)},
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
-      static_cast<const int32_t*>(n_runs), cap, bisect_steps(cap), nrows, fill,
-      static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int32_t*>(n_runs), cap, nrows,
+      static_cast<uint32_t>(fill), static_cast<uint32_t*>(out), max_blocks,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_unpack_error_string(int err) {

@@ -14,7 +14,9 @@ three Pallas kernels of ``repro.kernels.unpack``:
     packed keys); shared-memory boundaries up to ``MAX_SMEM_BOUNDARIES``,
     the L2 route above,
   * ``rle_decode_packed_kernel`` — RLE expansion whose run value is
-    extracted from the packed words at the run id.
+    extracted from the packed words at the run id, on the tile walk of
+    ``rle_decode_kernel`` (``csrc/rle_tile.cuh``): once a tile inside one
+    run, once a run where a tile stages several.
 
 The plain versions are ``ref.ref_unpack``, ``ref.ref_bucketize_packed``
 and ``ref.ref_rle_decode_packed``; the wrappers run them for CPU tensors.
@@ -47,7 +49,8 @@ def _entries():
                                                i32, i64, p, ctypes.c_int,
                                                ctypes.c_int, p]
         lib.repro_rle_decode_packed.argtypes = [p, i64, ctypes.c_int, i32, p,
-                                                p, p, i64, i64, i32, p, p]
+                                                p, p, i64, i64, i32, p, i64,
+                                                p]
         for fn in (lib.repro_unpack, lib.repro_bucketize_packed,
                    lib.repro_rle_decode_packed):
             fn.restype = ctypes.c_int
@@ -159,9 +162,11 @@ def bucketize_packed_kernel(boundaries: torch.Tensor, words: torch.Tensor,
 def rle_decode_packed_kernel(words: torch.Tensor, bit_width: int, offset,
                              cap: int, starts: torch.Tensor,
                              ends: torch.Tensor, n: torch.Tensor, nrows: int,
-                             fill=0) -> torch.Tensor:
+                             fill=0, max_blocks: Optional[int] = None
+                             ) -> torch.Tensor:
     """Decode an RLE column whose ``cap`` run values are packed to a dense
-    int32 [nrows]; rows in gaps and in runs at or past ``n`` get ``fill``."""
+    int32 [nrows]; rows in gaps and in runs at or past ``n`` get ``fill``.
+    ``max_blocks`` caps the grid; the output does not depend on it."""
     _check_words(words, bit_width, cap, "rle_decode_packed")
     for name, t in (("starts", starts), ("ends", ends)):
         if not isinstance(t, torch.Tensor) or t.dim() != 1 \
@@ -184,13 +189,13 @@ def rle_decode_packed_kernel(words: torch.Tensor, bit_width: int, offset,
         return torch.full((nrows,), torch.tensor(fill).to(torch.int32).item(),
                           dtype=torch.int32, device=words.device)
     bits = fill_bits(fill, torch.int32)
-    n = n.reshape(()).contiguous()
     out = torch.empty((nrows,), dtype=torch.int32, device=words.device)
     lib, _, _, fn = _ENTRIES or _entries()
     err = _build.run_on(words.get_device(), fn, words.data_ptr(),
                         words.shape[0], int(bit_width), int32_offset(offset),
                         starts.data_ptr(), ends.data_ptr(), n.data_ptr(), cap,
-                        nrows, int32_offset(bits), out.data_ptr())
+                        nrows, int32_offset(bits), out.data_ptr(),
+                        int(max_blocks or 0))
     if err:
         _build.check(lib, err, "rle_decode_packed_kernel",
                      "repro_unpack_error_string")

@@ -31,8 +31,9 @@ from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 from repro_torch.kernels import unpack as ku
 
-from torch_twins import (BUCKETIZE_CASES, RLE_CASES, TOPK_CASES,  # noqa: F401
-                         bucketize_cases, cuda_device, rle_case, topk_case)
+from torch_twins import (BUCKETIZE_CASES, RLE_CASES, RLE_DRAWS,  # noqa: F401
+                         TOPK_CASES, bucketize_cases, cuda_device,
+                         packed_values, rle_case, rle_draw, topk_case)
 
 
 def _t(a, dev):
@@ -67,6 +68,51 @@ def test_gpu_rle_decode_kernel_matches_plain(cuda_device, case, as_float):
     nt = torch.tensor(n, dtype=torch.int32, device=cuda_device)
     got = rle_decode_kernel(*args, nt, nrows, fill)
     assert torch.equal(got, ref.ref_rle_decode(*args, nt, nrows, fill))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", RLE_DRAWS)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_gpu_rle_decode_draws_match_plain(cuda_device, name, dtype):
+    """The tile walk's draws (one-run, window and L2-route tiles) equal
+    the plain version bit for bit, at the resident grid and two caps."""
+    vals, starts, ends, n, nrows, fill = rle_draw(
+        name, np.random.default_rng(RLE_DRAWS.index(name)))
+    if dtype == np.float32:
+        vals = (vals * np.float32(0.37)).astype(np.float32)
+        vals[::5] = -0.0
+    args = [_t(a, cuda_device) for a in (vals, starts, ends)]
+    nt = torch.tensor(n, dtype=torch.int32, device=cuda_device)
+    want = ref.ref_rle_decode(*args, nt, nrows, fill).view(torch.int32)
+    for grid in (None, 1, 3):
+        got = rle_decode_kernel(*args, nt, nrows, fill, max_blocks=grid)
+        assert torch.equal(got.view(torch.int32), want), grid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_gpu_rle_decoders_short_runs_at_scale(cuda_device, packed):
+    """About 2^21 runs of 1-4 rows with gaps over 2^23 rows (a window in
+    every tile), at the resident grid and a cap of 7 blocks."""
+    rng = np.random.default_rng(21)
+    rows = 1 << 23
+    starts, ends = chip_smoke.short_runs(rng, rows)
+    cap = len(starts)
+    ss, ee = (_t(a.astype(np.int32), cuda_device) for a in (starts, ends))
+    nt = torch.tensor(cap - 3, dtype=torch.int32, device=cuda_device)
+    if packed:
+        _, w, off = packed_values(rng, 13, cap, -7)
+        ww = _t(w, cuda_device)
+        want = ref.ref_rle_decode_packed(ww, 13, off, cap, ss, ee, nt, rows, 5)
+        run = lambda g: ku.rle_decode_packed_kernel(  # noqa: E731
+            ww, 13, off, cap, ss, ee, nt, rows, 5, max_blocks=g)
+    else:
+        vv = _t(rng.integers(-99, 99, cap).astype(np.int32), cuda_device)
+        want = ref.ref_rle_decode(vv, ss, ee, nt, rows, 5)
+        run = lambda g: rle_decode_kernel(  # noqa: E731
+            vv, ss, ee, nt, rows, 5, max_blocks=g)
+    for grid in (None, 7):
+        assert torch.equal(run(grid), want), grid
 
 
 @pytest.mark.gpu
@@ -187,6 +233,26 @@ def test_gpu_rle_decode_packed_kernel_matches_plain(cuda_device, rng, n_valid,
     got = ku.rle_decode_packed_kernel(ww, 13, lo, cap, ss, ee, nn, nrows, fill)
     want = ref.ref_rle_decode_packed(ww, 13, lo, cap, ss, ee, nn, nrows, fill)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", RLE_DRAWS)
+@pytest.mark.parametrize("bits", [1, 4, 13, 32])
+def test_gpu_rle_decode_packed_draws_match_plain(cuda_device, name, bits):
+    """The packed decoder on the tile walk's draws equals the plain
+    version exactly, at the resident grid and two caps."""
+    rng = np.random.default_rng(100 + RLE_DRAWS.index(name))
+    _, starts, ends, n, nrows, fill = rle_draw(name, rng)
+    cap = len(starts)
+    _, w, lo = packed_values(rng, bits, cap, -50)
+    ww, ss, ee = (_t(a, cuda_device) for a in (w, starts, ends))
+    nn = torch.tensor(n, dtype=torch.int32, device=cuda_device)
+    want = ref.ref_rle_decode_packed(ww, bits, lo, cap, ss, ee, nn, nrows,
+                                     fill)
+    for grid in (None, 1, 3):
+        got = ku.rle_decode_packed_kernel(ww, bits, lo, cap, ss, ee, nn, nrows,
+                                          fill, max_blocks=grid)
+        assert torch.equal(got, want), grid
 
 
 @pytest.mark.gpu

@@ -5,7 +5,9 @@ tests hold the plain versions (and the dispatch routes around them)
 against the JAX package's Pallas kernels in interpret mode, on the edge
 cases of tests/test_pallas_kernels.py and tests/test_kernels.py. The CUDA
 kernels themselves are held against the plain versions on the card by
-tests/test_torch_gpu.py.
+tests/test_torch_gpu.py; the fixed orders and tile plans that decide
+their results are repeated in numpy (tests/torch_twins.py) and held here
+against the reference.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -13,15 +15,19 @@ import pytest
 import torch
 
 from repro.kernels import dispatch as jdispatch, ops as jops, ref as jref
+from repro.kernels import unpack as junpack
 from repro_torch.core import telemetry as ttelemetry
 from repro_torch.kernels import _build, dispatch, ops, ref
 from repro_torch.kernels import bucketize as kb
+from repro_torch.kernels import rle_decode as kr
+from repro_torch.kernels import unpack as ku
 from repro_torch.kernels.rle_decode import fill_bits, rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 
-from torch_twins import (BUCKETIZE_CASES, RLE_CASES, TOPK_CASES, I32MIN,
-                         assert_close, assert_same, bucketize_cases,
-                         bucketize_tiles_emulated, rle_case,
+from torch_twins import (BUCKETIZE_CASES, RLE_CASES, RLE_DRAWS, TOPK_CASES,
+                         I32MIN, assert_close, assert_same, bucketize_cases,
+                         bucketize_tiles_emulated, host, packed_values,
+                         rle_case, rle_draw, rle_tiles_emulated,
                          segment_sum_emulated, topk_case)
 
 
@@ -752,3 +758,127 @@ def test_drop_slots_spread_over_the_spare_block(rng):
     np.testing.assert_array_equal(got[~keep],
                                   size + (pos & (ref.SPARE_SLOTS - 1)))
     assert ref.SPARE_SLOTS >= 1024
+
+
+def _assert_bits(want, got, what=""):
+    """Equal dtype and shape, and equal 32-bit patterns (float32 bit for
+    bit: -0.0 differs from 0.0, NaN payloads count)."""
+    want, got = host(want), host(got)
+    assert want.dtype == got.dtype, f"{what}: {got.dtype} != {want.dtype}"
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32),
+                                  err_msg=what)
+
+
+def _tiles(vals, starts, ends, n, nrows, fill, warps=8):
+    return rle_tiles_emulated(vals, starts, ends, n, nrows, fill,
+                              kr.TILE_ROWS, kr.STAGE_RUNS, warps)
+
+
+@pytest.mark.parametrize("case", RLE_CASES)
+@pytest.mark.parametrize("as_float", [False, True])
+def test_rle_tiles_emulated_rle_cases(case, as_float):
+    """The tile walk of both RLE decoders (``csrc/rle_tile.cuh``), repeated
+    in numpy at the kernel's tile and staging sizes, equals the reference
+    Pallas kernel in interpret mode and the plain version bit for bit on
+    the edge cases; no case has repeated ends inside a tile, so no tile
+    takes the L2 route."""
+    vals, starts, ends, n, nrows, fill = rle_case(case)
+    if as_float:
+        vals = vals.astype(np.float32)
+    want = jops.rle_decode(jnp.asarray(vals), jnp.asarray(starts),
+                           jnp.asarray(ends), jnp.asarray(n, jnp.int32), nrows,
+                           fill=fill, use_pallas=True, interpret=True)
+    got, routes, _ = _tiles(vals, starts, ends, n, nrows, fill)
+    _assert_bits(want, got, case)
+    _assert_bits(want, ref.ref_rle_decode(_t(vals), _t(starts), _t(ends),
+                                          torch.tensor(n, dtype=torch.int32),
+                                          nrows, fill), case)
+    assert len(routes) == -(-nrows // kr.TILE_ROWS)
+    assert "large" not in routes, routes
+
+
+# the routes each draw's tiles take at the kernel's sizes
+_DRAW_ROUTES = {
+    "long_runs": {"one", "window"}, "single_rows": {"window"},
+    "short_runs_gaps": {"window"}, "n_below": {"window"},
+    "n_zero": {"window"}, "past_ends": {"one", "window"},
+    "repeated_ends": {"one", "large"}, "ragged": {"window"},
+    "tiny_ragged": {"window"}, "mixed": {"one", "window"},
+}
+
+
+@pytest.mark.parametrize("name", RLE_DRAWS)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_rle_tiles_emulated_draws(name, dtype):
+    """Seeded draws (long runs, a run a row, short runs with gaps and a
+    fill, n below the filled slots, n = 0, rows past every end, repeated
+    ends, ragged row counts): the emulated tile walk equals the reference
+    kernel in interpret mode and the plain version bit for bit, whatever
+    the number of warps, and each draw takes the routes it was made for."""
+    rng = np.random.default_rng(RLE_DRAWS.index(name))
+    vals, starts, ends, n, nrows, fill = rle_draw(name, rng)
+    if dtype == np.float32:
+        vals = (vals * np.float32(0.37)).astype(np.float32)
+        vals[::5] = -0.0
+    want = jops.rle_decode(jnp.asarray(vals), jnp.asarray(starts),
+                           jnp.asarray(ends), jnp.asarray(n, jnp.int32), nrows,
+                           fill=fill, use_pallas=True, interpret=True)
+    _assert_bits(want, ref.ref_rle_decode(_t(vals), _t(starts), _t(ends),
+                                          torch.tensor(n, dtype=torch.int32),
+                                          nrows, fill), name)
+    for warps in (1, 8, 64):
+        got, routes, searched = _tiles(vals, starts, ends, n, nrows, fill,
+                                       warps)
+        _assert_bits(want, got, f"{name} warps={warps}")
+        assert set(routes) == _DRAW_ROUTES[name], routes
+        if name == "long_runs":  # a warp's first tile, and a tile that
+            # meets a run's end, search; the others keep the carried run
+            assert sum(searched) <= 11 + warps, (warps, sum(searched))
+    if name == "single_rows":  # the fullest window: 256 runs in 256 rows
+        assert len(routes) == 12
+
+
+@pytest.mark.parametrize("name", RLE_DRAWS)
+@pytest.mark.parametrize("bits", [1, 4, 13, 32])
+def test_rle_packed_tiles_emulated_draws(name, bits):
+    """``rle_decode_packed_kernel``'s tile walk, the run values extracted
+    from packed words: the emulation equals the reference packed kernel in
+    interpret mode and ``ref_rle_decode_packed`` exactly."""
+    rng = np.random.default_rng(100 + RLE_DRAWS.index(name))
+    _, starts, ends, n, nrows, fill = rle_draw(name, rng)
+    cap = len(starts)
+    v, w32, lo = packed_values(rng, bits, cap, -50)
+    want = junpack.rle_decode_packed_kernel(
+        jnp.asarray(w32.view(np.uint32)), bits, lo, cap, jnp.asarray(starts),
+        jnp.asarray(ends), jnp.asarray(n, jnp.int32), nrows, fill,
+        interpret=True)
+    nt = torch.tensor(n, dtype=torch.int32)
+    plain = ref.ref_rle_decode_packed(_t(w32), bits, lo, cap, _t(starts),
+                                      _t(ends), nt, nrows, fill)
+    _assert_bits(want, plain, name)
+    _assert_bits(want, ku.rle_decode_packed_kernel(
+        _t(w32), bits, lo, cap, _t(starts), _t(ends), nt, nrows, fill), name)
+    got, routes, _ = _tiles(v.astype(np.int32), starts, ends, n, nrows, fill)
+    _assert_bits(want, got, name)
+    assert set(routes) == _DRAW_ROUTES[name], routes
+
+
+def test_rle_tiles_window_bound():
+    """With strictly increasing ends a tile's window holds at most as many
+    runs as the tile has rows, so ``STAGE_RUNS = TILE_ROWS`` stages every
+    such window; a smaller staging area sends the same tiles to the L2
+    route (full tiles only), with the same output."""
+    assert kr.STAGE_RUNS >= kr.TILE_ROWS
+    rng = np.random.default_rng(5)
+    vals, starts, ends, n, nrows, fill = rle_draw("single_rows", rng)
+    want = ref.ref_rle_decode(_t(vals), _t(starts), _t(ends),
+                              torch.tensor(n, dtype=torch.int32), nrows,
+                              fill).numpy()
+    got, routes, _ = rle_tiles_emulated(vals, starts, ends, n, nrows, fill,
+                                        kr.TILE_ROWS, kr.TILE_ROWS - 1)
+    np.testing.assert_array_equal(got, want)
+    # the last tile holds 3000 - 11 * 256 = 184 rows: a window again
+    assert routes == ["large"] * 11 + ["window"], routes
+    got, routes, _ = _tiles(vals, starts, ends, n, nrows, fill)
+    np.testing.assert_array_equal(got, want)
+    assert set(routes) == {"window"}, routes

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import RLE_DRAWS, packed_values, rle_draw  # noqa: F401
+
 # JAX dtype names -> torch dtypes, for the dtype half of every comparison
 _NP_OF_TORCH = {
     torch.bool: np.dtype(np.bool_), torch.int8: np.dtype(np.int8),
@@ -492,3 +494,100 @@ def bucketize_tiles_emulated(b, q, right=True, max_splitters=4096,
             routes.append("splitter")
             out[t0:t0 + tile] = [splitter_count(x) for x in qt]
     return out, routes
+
+
+def _warp_count(ends, lb, x):
+    """``rle_tile.cuh``'s warp search for one target: the count of ends < x
+    over ``ends[lb:]`` plus lb, by a gallop round (lane j probes
+    lb + 2^j - 1), rounds of 32 evenly spaced probes, and a last round of
+    consecutive probes once at most 32 ends are left."""
+    cap = len(ends)
+    lanes = np.arange(32, dtype=np.int64)
+    a, b, gallop = lb, cap, True
+    while b > a:
+        last = not gallop and b - a <= 32
+        if last:
+            p = a + lanes
+        elif gallop:
+            p = a + (np.int64(1) << lanes) - 1
+        else:
+            step = -(-(b - a) // 32)
+            p = a + (lanes + 1) * step - 1
+        ok = (p < b) & (ends[np.minimum(p, cap - 1)] < x)
+        m = int(ok.sum())
+        assert ok[:m].all(), "probes accepted out of order: ends not sorted"
+        if last:
+            a = b = a + m
+        elif gallop:
+            a, b = (a if m == 0 else a + (1 << (m - 1))), min(a + (1 << m) - 1, b)
+        else:
+            a, b = a + m * step, min(a + m * step + step - 1, b)
+        gallop = False
+    return a
+
+
+def rle_tiles_emulated(values, starts, ends, n, nrows, fill, tile=256,
+                       stage=256, warps=8):
+    """``rle_decode_kernel`` / ``rle_decode_packed_kernel``'s tile walk in
+    numpy: the output and, per tile, its route ("one", "window" or
+    "large") and whether it searched (False where run lb, the count
+    carried from the tile before, covers the tile's last row).
+    ``warps`` warps take contiguous ranges of ``tile``-row tiles; each
+    tile's runs are bounded by lo0 / lo1, the counts of ends < its first
+    / last row; a window of at most ``stage`` runs counts each end at row
+    end + 1 of the tile and gives a row the prefix sum up to it, its bounds
+    relative to the tile's first row; a larger one bisects every row in
+    ``ends``."""
+    values = np.asarray(values)
+    starts = np.asarray(starts).astype(np.int64)
+    ends = np.asarray(ends).astype(np.int64)
+    cap = len(ends)
+    fill_v = np.asarray(fill).astype(values.dtype)
+    out = np.full(nrows, fill_v, values.dtype)
+    if nrows == 0 or cap == 0:
+        return out, [], []
+    tiles = -(-nrows // tile)
+    per = -(-tiles // warps)
+    routes, searched = [None] * tiles, [False] * tiles
+    for w in range(warps):
+        lb, cur, ce = 0, -1, 0
+        for t in range(w * per, min(w * per + per, tiles)):
+            r0 = t * tile
+            rl = min(r0 + tile, nrows) - 1
+            lo0 = lo1 = cap
+            if lb < cap:
+                eb = ce if cur == lb else ends[lb]
+                if eb >= rl:
+                    lo0 = lo1 = lb
+                else:
+                    lo0 = _warp_count(ends, lb, r0)
+                    lo1 = _warp_count(ends, lb, rl)
+                    searched[t] = True
+            lb = lo1
+            base, top = min(lo0, cap - 1), min(lo1, cap - 1)
+            rows = np.arange(r0, rl + 1, dtype=np.int64)
+            if base == top:
+                routes[t] = "one"
+                if cur != base:
+                    cur, ce = base, ends[base]
+                run = np.full(len(rows), base, np.int64)
+                cov = (run < n) & (rows >= starts[run]) & (rows <= ends[run])
+            elif top - base < stage:
+                routes[t] = "window"
+                m = top - base  # ends counted: those of runs base .. top - 1
+                s_start = np.clip(starts[base:top + 1] - r0, -1, tile)
+                s_end = np.clip(ends[base:top + 1] - r0, -1, tile)
+                cnt = np.zeros(tile, np.int64)
+                pos = s_end[:m] + 1
+                np.add.at(cnt, pos[(pos >= 0) & (pos < tile)], 1)
+                k = np.cumsum(cnt)[:len(rows)]  # inclusive prefix sums
+                q = rows - r0
+                kn = min(max(n - base, 0), m + 1)  # run < n: k < kn
+                run = base + k
+                cov = (k < kn) & (q >= s_start[k]) & (q <= s_end[k])
+            else:
+                routes[t] = "large"
+                run = base + np.searchsorted(ends[base:top], rows, "left")
+                cov = (run < n) & (rows >= starts[run]) & (rows <= ends[run])
+            out[r0:rl + 1] = np.where(cov, values[run], fill_v)
+    return out, routes, searched

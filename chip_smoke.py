@@ -59,7 +59,11 @@ first error:
    under a seeded fault plan (3 transient transfers, 1 OOM) that must fire
    in full and recover bit-identically. Per query it prints partitions
    visited and pruned, bytes moved packed and unpacked, the stage ms, warm
-   wall ms at depth 0 and 2, and the H2D bound (bytes over the pinned
+   wall ms at depth 0 and 2, ``unpack_kernel`` launches a run (each packed
+   leaf once a partition's program), the device memory of a depth-2 run
+   at its peak (``torch.cuda.max_memory_allocated``, and over what was
+   held before it) beside the largest partition's unpacked bytes, and the
+   H2D bound (bytes over the pinned
    bandwidth measured here with one 1 GiB copy). Launch counts are zeroed
    just before the phase and read just after; the run fails if any of the
    three packed kernels was not launched.
@@ -107,7 +111,8 @@ line): ``--kernel-bench`` times every kernel at the main path's shapes on
 seeded inputs (and both RLE decoders at a short-run shape too: about 2^21
 runs of 1-4 rows with gaps over 2^23 rows; ``unpack_kernel`` and
 ``bucketize_packed_kernel`` also at the streamed path's smaller launch
-classes), per launch, back to back and on the device; ``--queries Q3,Q17`` runs only those queries, resident
+classes, the latter on Q17's sorted, code-0 padded run values and on
+random ones), per launch, back to back and on the device; ``--queries Q3,Q17`` runs only those queries, resident
 and streamed (with ``--profile``, their profiles); ``--src DIR`` imports
 ``repro_torch`` from another checkout's ``src`` (its kernels build
 there), so one call can time a parent tree and this one in turns.
@@ -144,7 +149,7 @@ KERNEL_INFO = {
                            "src/repro/kernels/segment_reduce.py:43"),
     "unpack_kernel": ("src/repro_torch/kernels/csrc/unpack.cu",
                       "src/repro/kernels/unpack.py:88"),
-    "bucketize_packed_kernel": ("src/repro_torch/kernels/csrc/unpack.cu",
+    "bucketize_packed_kernel": ("src/repro_torch/kernels/csrc/bucketize.cu",
                                 "src/repro/kernels/unpack.py:122"),
     "rle_decode_packed_kernel": ("src/repro_torch/kernels/csrc/unpack.cu",
                                  "src/repro/kernels/unpack.py:169"),
@@ -914,6 +919,37 @@ def packed_values(rng, b, n, lo):
     return v, compress.pack_array(v, lo, b).view(np.int32), lo
 
 
+PACKED_PATTERNS = ("sorted_padded", "random", "all_equal", "above_all")
+UNPACK_CLASSES = (8, 4096, 1 << 17, 1 << 19, 1 << 23)  # main-path launch classes
+
+
+def packed_queries(rng, b, pattern, n, nb, n_valid=None):
+    """(int32 boundaries, values, packed lanes as int32, offset) of one
+    ``bucketize_packed_kernel`` case at width ``b``: ``sorted_padded``
+    sorts the first ``n_valid`` values (half by default) and sets the rest
+    to code 0, the offset, as the streamed semi-join probes an RLE column's
+    packed run values (tiles of padding only, one tile across n_valid);
+    ``random``; ``all_equal``; ``above_all``, every value above every
+    boundary."""
+    from repro_torch.core import compress
+    v, _, lo = packed_values(rng, b, n, -(1 << min(b, 31) - 1))
+    top = lo + (1 << b) - 1 if b < 32 else 2**31 - 1
+    if pattern == "sorted_padded":
+        k = n // 2 if n_valid is None else n_valid
+        v[:k] = np.sort(v[:k])
+        v[k:] = lo
+    elif pattern == "all_equal":
+        v[:] = v[0]
+    if pattern == "above_all":
+        cut = lo + (top - lo) // 4
+        bnd = rng.integers(lo, cut, nb, endpoint=True)
+        v = np.maximum(v, cut + 1)
+    else:
+        bnd = rng.integers(lo, top, nb, endpoint=True)
+    return (np.sort(bnd).astype(np.int32), v,
+            compress.pack_array(v, lo, b).view(np.int32), lo)
+
+
 def short_runs(rng, nrows, first=0):
     """(starts, ends) of runs of 1-4 rows after gaps of 0-3 rows, from row
     ``first`` to ``nrows``: about one run every 4 rows."""
@@ -1009,18 +1045,31 @@ def packed_edge_cases(dev):
         if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
             raise AssertionError(f"kernel check failed: {what}")
 
+    def view_at(w, off):  # the lanes as a view at storage offset ``off``
+        junk = rng.integers(-(2**31), 2**31 - 1, off, dtype=np.int64)
+        return t(np.concatenate([junk.astype(np.int32), w]))[off:]
+
     for b in PACK_BITS:
-        # N = 0, N = 1, a few lanes (values straddle lanes for most b), a
+        # N = 0, N = 1, a few lanes (values straddle lanes for most b),
+        # either side of a 128-value group and of a 2048-value tile, a
         # ragged tail; negative offsets, and the full range at b = 32
-        for n in (0, 1, 33, 100_003):
+        for n in (0, 1, 33, 127, 128, 129, 2047, 2048, 2049, 100_003):
             for lo in (-(1 << min(b, 31) - 1), 12345):
                 v, w, off = packed_values(rng, b, n, lo)
                 ww = t(w)
+                want = ref.ref_unpack(ww, b, off, n)
                 got = ku.unpack_kernel(ww, b, off, n)
-                same(got, ref.ref_unpack(ww, b, off, n), f"unpack b={b} n={n}")
+                same(got, want, f"unpack b={b} n={n}")
                 if not np.array_equal(got.cpu().numpy(), v.astype(np.int32)):
                     raise AssertionError(f"unpack round trip b={b} n={n}")
-                cases += 1
+                same(ku.unpack_kernel(ww, b, off, n, max_blocks=1), want,
+                     f"unpack b={b} n={n} one block")
+                cases += 2
+            if n >= 2047:  # words views at offsets 1-3: the scalar path
+                for voff in (1, 2, 3):
+                    same(ku.unpack_kernel(view_at(w, voff), b, off, n), want,
+                         f"unpack b={b} n={n} view at {voff}")
+                    cases += 1
     for off in (0, 7, -(2**31), 2**31 - 1):  # width-32 wrap-add
         v = np.array([-(2**31), -1, 0, 1, 2**31 - 1], np.int64)
         from repro_torch.core import compress
@@ -1028,6 +1077,17 @@ def packed_edge_cases(dev):
         got = ku.unpack_kernel(ww, 32, off, 5)
         if not np.array_equal(got.cpu().numpy(), v.astype(np.int32)):
             raise AssertionError(f"unpack width-32 wrap, offset {off}")
+        cases += 1
+    for n in UNPACK_CLASSES:  # every launch class of the main path, 24 bits
+        v, w, off = packed_values(rng, 24, n, -(1 << 23))
+        ww = t(w)
+        want = ref.ref_unpack(ww, 24, off, n)
+        for grid in (None, 1, 7):
+            same(ku.unpack_kernel(ww, 24, off, n, max_blocks=grid), want,
+                 f"unpack class {n} grid={grid}")
+            cases += 1
+        same(ku.unpack_kernel(view_at(w, 1), 24, off, n), want,
+             f"unpack class {n} view at 1")
         cases += 1
 
     i32max = np.iinfo(np.int32).max
@@ -1049,9 +1109,41 @@ def packed_edge_cases(dev):
                      f"bucketize_packed {how} n={n} right={right}")
                 if nb <= ku.MAX_SMEM_BOUNDARIES:
                     same(ku.bucketize_packed_kernel(bb, ww, b, off, n, right,
-                                                    global_route=True),
-                         want, f"bucketize_packed L2 route {how} n={n}")
+                                                    tiled=True),
+                         want, f"bucketize_packed tiled route {how} n={n}")
                 cases += 1
+    # the tiled route's tile bound: the streamed semi-join's shape (sorted
+    # run values, then code-0 padding: tiles of padding only, one tile
+    # across n_valid), random, all-equal and above-every-boundary queries;
+    # the shared-memory route on the same queries; grid caps, few
+    # splitters and words views at offsets 1-3 change no count
+    for b in (9, 21, 32):
+        for pattern in PACKED_PATTERNS:
+            bnd, v, w, off = packed_queries(rng, b, pattern, 300_001, 97_533,
+                                            n_valid=140_000)
+            bb, ww = t(bnd), t(w)
+            for right in (True, False):
+                want = ref.ref_bucketize_packed(bb, ww, b, off, len(v), right)
+                for kw in ({}, {"max_blocks": 1}, {"max_blocks": 7},
+                           {"max_splitters": 64}):
+                    same(ku.bucketize_packed_kernel(bb, ww, b, off, len(v),
+                                                    right, **kw), want,
+                         f"bucketize_packed {pattern} b={b} {kw}")
+                    cases += 1
+                for voff in (1, 2, 3):
+                    same(ku.bucketize_packed_kernel(bb, view_at(w, voff), b,
+                                                    off, len(v), right), want,
+                         f"bucketize_packed {pattern} b={b} view at {voff}")
+                    cases += 1
+                small = bb[::24].contiguous()  # 4,064: shared memory
+                want = ref.ref_bucketize_packed(small, ww, b, off, len(v),
+                                                right)
+                for tiled in (False, True):
+                    same(ku.bucketize_packed_kernel(small, ww, b, off, len(v),
+                                                    right, tiled=tiled), want,
+                         f"bucketize_packed {pattern} b={b} 4,064 "
+                         f"tiled={tiled}")
+                    cases += 1
 
     def runs(nrows, k, cap, gap):
         starts = np.sort(rng.choice(nrows - gap, k, replace=False))
@@ -1432,6 +1524,7 @@ def kernel_timing(launches, largest, part_keys):
             nbytes, nops = 4 * w.shape[0] + 4 * n, n
             kern_fn = lambda: ku.unpack_kernel(w, b, off, n)  # noqa: E731
             plain_fn = lambda: ref.ref_unpack(w, b, off, n)  # noqa: E731
+            shape["device_ms"] = device_us(kern_fn, "unpack") / 1e3
         elif name == "bucketize_packed_kernel":
             bnd, w, b, off, n, right = (rec["boundaries"], rec["words"],
                                         rec["bit_width"], rec["offset"],
@@ -1450,6 +1543,9 @@ def kernel_timing(launches, largest, part_keys):
                 bnd, w, b, off, n, right)
             plain_fn = lambda: ref.ref_bucketize_packed(  # noqa: E731
                 bnd, w, b, off, n, right)
+            shape["route"] = ("tiled" if nb > ku.MAX_SMEM_BOUNDARIES
+                              else "shared memory")
+            shape["device_ms"] = device_us(kern_fn, "bucketize") / 1e3
             # no PyTorch call computes this function: torch.searchsorted
             # needs the queries unpacked first. Timed beside it, it is not
             # the library time of the kernel line.
@@ -1662,11 +1758,27 @@ def bench_inputs(dev):
                     lambda wv=wv, nv=nv: ku.unpack_kernel(wv, 24, 0, nv),
                     lambda wv=wv, nv=nv: ref.ref_unpack(wv, 24, 0, nv), True,
                     4 * wv.shape[0] + 4 * nv, nv))
+    # Q17's streamed semi-join: 97,533 part keys against a partition's
+    # packed RLE run values of partkey, 21 bits (offset 0): the partition's
+    # consecutive keys (280,000 of 2^23 rows; 44,000 in the short last
+    # one), then code 0 up to the capacity; and random queries
+    from repro_torch.core import compress
     pb = torch.sort(ints(0, 1 << 21, 97_533)).values
-    words21 = ints(-(2**31), 2**31 - 1, ku.nwords_for(524_288, 21))
-    out.append(("bucketize_packed_kernel", "97,533 x 524,288 x 21 bits", lambda: ku.bucketize_packed_kernel(pb, words21, 21, 0, 524_288), lambda: ref.ref_bucketize_packed(pb, words21, 21, 0, 524_288), True, 4 * (97_533 + words21.shape[0] + 524_288), 524_288 * _steps(97_533)))  # noqa: E501
-    words21s = ints(-(2**31), 2**31 - 1, ku.nwords_for(65_536, 21))
-    out.append(("bucketize_packed_kernel", "97,533 x 65,536 x 21 bits", lambda: ku.bucketize_packed_kernel(pb, words21s, 21, 0, 65_536), lambda: ref.ref_bucketize_packed(pb, words21s, 21, 0, 65_536), True, 4 * (97_533 + words21s.shape[0] + 65_536), 65_536 * _steps(97_533)))  # noqa: E501
+    for nq, n_valid in ((524_288, 280_000), (65_536, 44_000)):
+        qv = np.zeros(nq, np.int64)
+        qv[:n_valid] = 3 * n_valid + np.arange(n_valid)
+        wq = torch.from_numpy(compress.pack_array(qv, 0, 21).view(
+            np.int32)).to(dev)
+        wr = ints(-(2**31), 2**31 - 1, ku.nwords_for(nq, 21))
+        for label, ww in (("sorted + code-0 padding", wq), ("random", wr)):
+            out.append(("bucketize_packed_kernel",
+                        f"97,533 x {nq:,} x 21 bits, {label}",
+                        lambda ww=ww, nq=nq: ku.bucketize_packed_kernel(
+                            pb, ww, 21, 0, nq),
+                        lambda ww=ww, nq=nq: ref.ref_bucketize_packed(
+                            pb, ww, 21, 0, nq), True,
+                        4 * (97_533 + ww.shape[0] + nq),
+                        nq * _steps(97_533)))
     rows = 1 << 23
     pst = torch.sort(torch.randperm(rows, device=dev, generator=gen)[:128]
                      ).values.to(i32)
@@ -1920,14 +2032,26 @@ def outofcore_phase(dev, shared, h2d_gbps, seed, profile_dir=None,
         moved = []
         for depth in (0, 1, 2, 0, 2, 0, 2):
             before, tally = dict(_build.LAUNCHES), decoder_tally()
+            first2 = depth == 2 and "launches_per_run" not in rec
+            if first2:  # the device memory one run adds at its peak
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
             with dispatch.overrides(prefetch_depth=depth), \
                     telemetry.h2d_listener(lambda nb, tree: moved.append(nb)):
                 q = query(pt)
                 res, ms = _timed_run(q)
-            if depth == 2 and "launches_per_run" not in rec:
+            if first2:
                 rec["launches_per_run"] = {
                     k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}
+                rec["unpack_launches_per_run"] = \
+                    rec["launches_per_run"]["unpack_kernel"]
                 rec["decoder_shapes_per_run"] = decoder_shapes(tally)
+                peak = torch.cuda.max_memory_allocated(dev)
+                rec["max_memory_allocated_MiB_depth2"] = peak / 2**20
+                rec["run_peak_over_baseline_MiB_depth2"] = (peak - base) / 2**20
+                rec["partition_MiB_unpacked_max"] = max(
+                    p.table.nbytes_unpacked() for p in pt.partitions) / 2**20
             times[depth].append(ms)
             if depth in results and _bits(res) != _bits(results[depth]):
                 raise AssertionError(f"{name}: depth-{depth} re-run differs")
@@ -2237,7 +2361,10 @@ def main(argv=None) -> int:
             "warm_ms_depth2": v["warm_ms_depth2"],
             "h2d_bound_ms_packed": v["h2d_bound_ms_packed"],
             "bytes_moved_packed": v["bytes_moved_packed"],
-            "bytes_moved_unpacked": v["bytes_moved_unpacked"]}
+            "bytes_moved_unpacked": v["bytes_moved_unpacked"],
+            "unpack_launches_per_run": v["unpack_launches_per_run"],
+            "max_memory_allocated_MiB_depth2":
+                v["max_memory_allocated_MiB_depth2"]}
         for k, v in ooc.items()}, "ordering": {
         k: {"path": v["path"], "warm_median_ms": v["warm_median_ms"],
             "warm_ms_depth0": v["warm_ms_depth0"],

@@ -540,6 +540,12 @@ class Query:
                 walk.observe(op)
 
         def program(columns, key_sets, base_mask=None):
+            # each packed leaf is unpacked once a program (the scope ends
+            # with it, so nothing it unpacked outlives the run)
+            with dispatch.unpack_once():
+                return run_ops(columns, key_sets, base_mask)
+
+        def run_ops(columns, key_sets, base_mask):
             mask = base_mask
             env = dict(columns)
             ks = list(key_sets)

@@ -3,8 +3,9 @@
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
 ``sm_90a`` into plain shared libraries with an ``extern "C"`` interface,
 loaded with ``ctypes`` (pointers and the stream as ``c_void_p``). One
-``nvcc`` runs per source, all started together; headers (``*.cuh``) are
-hashed with the sources. The libraries land in
+``nvcc`` runs per source, all started together; every header in
+``csrc/`` (``*.cuh``) is hashed with the sources, so an edit to any of
+them rebuilds. The libraries land in
 ``build/repro_torch_kernels/<hash>/`` at the checkout root, keyed by a
 hash of the sources and flags, so a fresh checkout builds them on its
 first kernel call and a changed source never loads a stale library.
@@ -33,7 +34,6 @@ from typing import Dict
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("bucketize.cu", "rle_decode.cu", "segment_reduce.cu", "unpack.cu",
            "topk.cu")
-HEADERS = ("bisect.cuh", "launch.cuh", "rle_tile.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -94,9 +94,14 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def headers() -> tuple:
+    """Every header in ``csrc/``, by name."""
+    return tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
+
+
 def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + HEADERS:
+    for src in SOURCES + headers():
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]

@@ -17,7 +17,8 @@ Two routes, ported from the two Pallas kernels of
    that name tiles an O(Q·B) count because VMEM bounds the boundary
    block; Hopper has no such ceiling, so the port computes the same
    counts in O(Q log B).) Persistent blocks stage every 2^s-th boundary
-   (at most ``SPLITTERS``) in shared memory, bound the counts of each
+   (at most ``SPLITTERS``, and 256 for each tile a block takes) in
+   shared memory, bound the counts of each
    tile of ``COUNT_TILE`` queries by the counts of its min and max, and
    then either search a window of at most ``WINDOW`` boundaries staged in
    shared memory (the sorted probes of the main path) or finish the last
@@ -73,7 +74,9 @@ def launch_plan(nb: int, queries_ptr: int, out_ptr: int) -> int:
 def count_plan(nb: int, max_splitters: int = SPLITTERS) -> Tuple[int, int]:
     """``(s, nsplit)`` of the tiled route: the least s for which every
     2^s-th of ``nb`` boundaries fits ``max_splitters`` staged entries,
-    and their number (the C entry computes the same)."""
+    and their number. The C entry computes the same, with ``max_splitters``
+    lowered to 256 for each tile a block of its grid takes (a launch of
+    few tiles a block stages fewer)."""
     s = 0
     while ((nb - 1) >> s) + 1 > max_splitters:
         s += 1

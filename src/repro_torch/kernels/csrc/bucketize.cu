@@ -1,15 +1,24 @@
 // Hopper kernels for `bucketize` (searchsorted): per query, the count of sorted
 // boundaries <= q (right) or < q (left), as int32.
 //
-// Replaces two Pallas TPU kernels in src/repro/kernels/bucketize.py:
-//   * bucketize_kernel: boundaries resident in VMEM (up to 2^21 entries), a
-//     branch-free log2(B) bisection per lane, 1024-query tiles.
-//   * bucketize_count_kernel: for boundary lists beyond VMEM, a (query tile x
-//     2048-boundary tile) grid of comparisons summed into the output, with
-//     sentinel-padded boundaries.
+// Replaces three Pallas TPU kernels:
+//   * bucketize_kernel (src/repro/kernels/bucketize.py): boundaries resident
+//     in VMEM (up to 2^21 entries), a branch-free log2(B) bisection per lane,
+//     1024-query tiles.
+//   * bucketize_count_kernel (bucketize.py): for boundary lists beyond VMEM,
+//     a (query tile x 2048-boundary tile) grid of comparisons summed into the
+//     output, with sentinel-padded boundaries.
+//   * bucketize_packed_kernel (src/repro/kernels/unpack.py): bucketize over
+//     bit-packed int32 queries, the codes extracted in registers so the
+//     unpacked queries never reach device memory.
+// Both routes below are templated on the query source: DenseQueries (one
+// 16-byte load for four queries) or PackedQueries (four consecutive codes
+// extracted from the at most five lanes that cover them, csrc/packed.cuh),
+// so the packed and the unpacked routes compare through one code path.
 //
 // What bounds it on the H100: bytes. The least work is one read of each query
-// and each boundary and one write of each count, 4 bytes apiece, at 3.35 TB/s.
+// (4 bytes, or b/8 packed) and each boundary and one write of each count, 4
+// bytes apiece, at 3.35 TB/s.
 // The bisection does O(Q log B) further reads, but they hit shared memory or
 // the 50 MB L2 (queries and counts stream past it with evict-first loads and
 // stores), never device memory again.
@@ -35,16 +44,21 @@
 //   * The host side of a launch is short: kernels/bucketize.py binds the entry
 //     once and plans the route (launch_plan: load width, persistent or not);
 //     the C entry sizes the grid and launches.
-//   * tiled route (bucketize_count_kernel, any B): the TPU's O(Q*B) tiled
-//     count has no VMEM ceiling to work around here; the count of a query is
-//     monotone in the query, and both callers on the main path (the join
-//     probe and the semi-join, resident and streamed) probe with queries
-//     sorted by the table's order. A persistent grid of 256-thread blocks
+//   * tiled route (bucketize_count_kernel, any B; bucketize_packed_kernel
+//     above the shared-memory route): the TPU's O(Q*B) tiled count has no
+//     VMEM ceiling to work around here; the count of a query is monotone in
+//     the query, and the callers on the main path (the join probe and the
+//     semi-join, resident and streamed; the streamed semi-join's packed RLE
+//     run values, sorted up to n and padded with the column's offset) probe
+//     with queries sorted by the table's order. A persistent grid of 256-thread blocks
 //     takes contiguous runs of 2048-query tiles, two groups of four queries
 //     a thread (one 16-byte load a group when aligned; the next tile's loads
 //     go out before this tile's searches), so a tile's barriers and bound
-//     searches are paid once for 2048 queries. Each block stages every 2^s-th boundary (at most
-//     `max_splitters`, 4096 by default: 16 KB) in shared memory once. Per
+//     searches are paid once for 2048 queries. Each block stages every 2^s-th
+//     boundary in shared memory once: at most `max_splitters` (4096 by
+//     default: 16 KB), and at most 256 for each tile the block takes, so a
+//     launch of few tiles a block (the streamed semi-join's 256 tiles)
+//     does not spend its time staging splitters it barely uses. Per
 //     tile, the block reduces the queries' min and max (NaN above every
 //     number) and two warps count them: a bisection over the staged
 //     splitters, then 64 probes a round through L2 inside the splitter's
@@ -58,6 +72,11 @@
 //         queries over the staged splitters (bisect4), then finishes the last
 //         s levels through L2, the four searches interleaved.
 //     Either way a count is exact, so the grid does not change the output.
+//   * packed queries always take four consecutive queries a thread (the
+//     counts are a fresh, 16-byte aligned tensor; the lane loads are scalar,
+//     so the words may sit at any offset). On the streamed semi-join a tile
+//     of padding only has lo == hi and searches nothing, and the one tile
+//     that straddles n takes the splitter route.
 //   * float32 compares as torch.searchsorted does, so a NaN query counts
 //     every boundary (NaN sorts above every number, as in jnp.searchsorted).
 // Each launch goes on the caller's stream, allocates nothing, and returns
@@ -68,6 +87,7 @@
 #include <type_traits>
 
 #include "bisect.cuh"
+#include "packed.cuh"
 
 namespace {
 
@@ -75,6 +95,7 @@ using repro::bisect;
 using repro::bisect4;
 using repro::bisect_steps;
 using repro::counted;
+using repro::Packed;
 
 constexpr int kSmemThreads = 256;
 constexpr int kPerThread = 4;
@@ -83,6 +104,7 @@ constexpr int kWarps = kSmemThreads / 32;
 constexpr int kWindow = 2048;  // boundaries a tile's window may stage
 constexpr int kGroups = 2;  // tiled route: groups of four queries a thread
 constexpr int kCountTile = kGroups * kTile;  // tiled route: queries a tile
+constexpr int kSplittersPerTile = 256;  // splitters staged for a block's tile
 
 template <typename T>
 __device__ __forceinline__ T from_bits(int b);
@@ -97,33 +119,62 @@ __device__ __forceinline__ float from_bits<float>(int b) {
   return __int_as_float(b);
 }
 
-// This thread's four queries of the tile at `base`: one 16-byte load at
-// base + 4t (kVec), else queries base + t + 256j. Past nq they repeat a query
-// in range; store4 leaves those out.
-template <typename T, bool kVec>
-__device__ __forceinline__ void load4(const T* __restrict__ queries,
-                                      int64_t nq, int64_t base, T (&q)[4]) {
-  if constexpr (kVec) {
+// The query sources of both routes. load4 gives this thread's four queries
+// of the tile at `base`: with kVec queries base + 4t .. base + 4t + 3 (one
+// 16-byte load for dense queries), else base + t + 256j. Past n they repeat
+// a query in range; store4 leaves those out.
+template <typename T>
+struct DenseQueries {
+  using Value = T;
+  const T* q;
+  int64_t n;
+
+  template <bool kVec>
+  __device__ __forceinline__ void load4(int64_t base, T (&v)[4]) const {
+    if constexpr (kVec) {
+      const int64_t i = base + kPerThread * threadIdx.x;
+      if (i + kPerThread <= n) {
+        const int4 w = __ldcs(reinterpret_cast<const int4*>(q + i));
+        v[0] = from_bits<T>(w.x);
+        v[1] = from_bits<T>(w.y);
+        v[2] = from_bits<T>(w.z);
+        v[3] = from_bits<T>(w.w);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPerThread; ++j) v[j] = q[i + j < n ? i + j : n - 1];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const int64_t p = base + threadIdx.x + j * kSmemThreads;
+        v[j] = q[p < n ? p : n - 1];
+      }
+    }
+  }
+};
+
+// Packed int32 queries (bucketize_packed_kernel, csrc/packed.cuh): a
+// thread's four consecutive codes come from the at most five lanes that
+// cover them (extract4: scalar lane loads, so a words view at any offset
+// reads alike), the codes never written to device memory.
+struct PackedQueries {
+  using Value = int32_t;
+  Packed p;
+  int64_t n;
+
+  template <bool kVec>
+  __device__ __forceinline__ void load4(int64_t base, int32_t (&v)[4]) const {
+    static_assert(kVec, "packed queries take the four-consecutive layout");
     const int64_t i = base + kPerThread * threadIdx.x;
-    if (i + kPerThread <= nq) {
-      const int4 w = __ldcs(reinterpret_cast<const int4*>(queries + i));
-      q[0] = from_bits<T>(w.x);
-      q[1] = from_bits<T>(w.y);
-      q[2] = from_bits<T>(w.z);
-      q[3] = from_bits<T>(w.w);
+    if (i + kPerThread <= n) {
+      repro::extract4(p, i, v);
     } else {
 #pragma unroll
       for (int j = 0; j < kPerThread; ++j)
-        q[j] = queries[i + j < nq ? i + j : nq - 1];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int64_t p = base + threadIdx.x + j * kSmemThreads;
-      q[j] = queries[p < nq ? p : nq - 1];
+        v[j] = repro::extract(p, i + j < n ? i + j : n - 1);
     }
   }
-}
+};
 
 template <bool kVec>
 __device__ __forceinline__ void store4(int32_t* __restrict__ out, int64_t nq,
@@ -147,26 +198,27 @@ __device__ __forceinline__ void store4(int32_t* __restrict__ out, int64_t nq,
   }
 }
 
-template <typename T, bool kRight, bool kVec>
+template <bool kRight, bool kVec, typename Src>
 __global__ void __launch_bounds__(kSmemThreads)
-    bucketize_smem_kernel(const T* __restrict__ boundaries, int64_t nb,
-                          const T* __restrict__ queries,
-                          int32_t* __restrict__ out, int64_t nq) {
+    bucketize_smem_kernel(const typename Src::Value* __restrict__ boundaries,
+                          int64_t nb, Src src, int32_t* __restrict__ out) {
+  using T = typename Src::Value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sb = reinterpret_cast<T*>(smem_raw);
+  const int64_t nq = src.n;
   const int64_t tiles = (nq + kTile - 1) / kTile;
   int64_t tile = blockIdx.x;
   T q[kPerThread];
   int32_t lo[kPerThread];
   // the first tile's queries are in flight while the boundaries are staged
-  if (tile < tiles) load4<T, kVec>(queries, nq, tile * kTile, q);
+  if (tile < tiles) src.template load4<kVec>(tile * kTile, q);
   const int nbi = static_cast<int>(nb);
   const bool odd = (nbi & 255) == 0;  // see window_split
   for (int i = threadIdx.x; i < nbi; i += kSmemThreads)
     sb[i] = __ldg(boundaries + i);
   __syncthreads();
   for (; tile < tiles; tile += gridDim.x) {
-    if (tile != blockIdx.x) load4<T, kVec>(queries, nq, tile * kTile, q);
+    if (tile != blockIdx.x) src.template load4<kVec>(tile * kTile, q);
     bisect4<T, kRight>(sb, nbi, odd, q, lo);
     store4<kVec>(out, nq, tile * kTile, lo);
   }
@@ -259,12 +311,13 @@ __device__ __forceinline__ void splitter_count4(
     c[j] = static_cast<int32_t>(base[j] + rel[j]);
 }
 
-template <typename T, bool kRight, bool kVec>
+template <bool kRight, bool kVec, typename Src>
 __global__ void __launch_bounds__(kSmemThreads)
-    bucketize_tiled_kernel(const T* __restrict__ boundaries, int64_t nb,
-                           int shift, int nsplit, int split_steps,
-                           const T* __restrict__ queries,
-                           int32_t* __restrict__ out, int64_t nq) {
+    bucketize_tiled_kernel(const typename Src::Value* __restrict__ boundaries,
+                           int64_t nb, int shift, int nsplit, int split_steps,
+                           Src src, int32_t* __restrict__ out) {
+  using T = typename Src::Value;
+  const int64_t nq = src.n;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int64_t* lohi = reinterpret_cast<int64_t*>(smem_raw);  // [2]
   T* red = reinterpret_cast<T*>(smem_raw + 16);          // [2][kWarps]
@@ -281,7 +334,7 @@ __global__ void __launch_bounds__(kSmemThreads)
   if (tile < last) {
 #pragma unroll
     for (int gr = 0; gr < kGroups; ++gr)
-      load4<T, kVec>(queries, nq, tile * kCountTile + gr * kTile, q[gr]);
+      src.template load4<kVec>(tile * kCountTile + gr * kTile, q[gr]);
   }
   for (int i = threadIdx.x; i < nsplit; i += kSmemThreads)
     split[i] = __ldg(boundaries + (static_cast<int64_t>(i) << shift));
@@ -303,8 +356,8 @@ __global__ void __launch_bounds__(kSmemThreads)
     if (more) {
 #pragma unroll
       for (int gr = 0; gr < kGroups; ++gr)
-        load4<T, kVec>(queries, nq, (tile + 1) * kCountTile + gr * kTile,
-                       qn[gr]);
+        src.template load4<kVec>((tile + 1) * kCountTile + gr * kTile,
+                                 qn[gr]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -367,11 +420,11 @@ __global__ void __launch_bounds__(kSmemThreads)
   }
 }
 
-template <auto kKernel, typename T>
-int launch_smem(const T* bp, int64_t nb, const T* qp, int32_t* op, int64_t nq,
-                int persistent, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(nb) * sizeof(T);
-  int64_t tiles = (nq + kTile - 1) / kTile;
+template <auto kKernel, typename Src>
+int launch_smem(const typename Src::Value* bp, int64_t nb, Src src,
+                int32_t* op, int persistent, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(nb) * sizeof(typename Src::Value);
+  int64_t tiles = (src.n + kTile - 1) / kTile;
   unsigned grid = 0;
   if (persistent) {
     cudaError_t err = repro::smem_grid<kKernel>(kSmemThreads, smem, tiles,
@@ -382,80 +435,104 @@ int launch_smem(const T* bp, int64_t nb, const T* qp, int32_t* op, int64_t nq,
         cudaErrorInvalidValue);  // only the persistent route opts in
     grid = static_cast<unsigned>(tiles > 0x7fffffff ? 0x7fffffff : tiles);
   }
-  kKernel<<<grid, kSmemThreads, smem, stream>>>(bp, nb, qp, op, nq);
+  kKernel<<<grid, kSmemThreads, smem, stream>>>(bp, nb, src, op);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kRight>
-int launch_smem_route(const T* bp, int64_t nb, const T* qp, int32_t* op,
-                      int64_t nq, int vec, int persistent,
-                      cudaStream_t stream) {
-  if (vec)
-    return launch_smem<bucketize_smem_kernel<T, kRight, true>>(
-        bp, nb, qp, op, nq, persistent, stream);
-  return launch_smem<bucketize_smem_kernel<T, kRight, false>>(
-      bp, nb, qp, op, nq, persistent, stream);
+// The tiled route's grid and splitters: a persistent grid of at most the
+// resident blocks; every 2^s-th boundary staged a block, s the least for
+// which they number at most max_splitters and at most kSplittersPerTile for
+// each tile the block takes (a block of the 256 tiles of a 524,288-query
+// launch takes one: it stages 191 of 97,533 boundaries, not 3,048).
+template <auto kKernel, typename Src>
+int launch_tiled(const typename Src::Value* bp, int64_t nb, Src src,
+                 int32_t* op, int64_t max_blocks, int max_splitters,
+                 cudaStream_t stream) {
+  const int64_t tiles = (src.n + kCountTile - 1) / kCountTile;
+  unsigned grid = 0;
+  int shift = 0, nsplit = 0;
+  size_t smem = 0;
+  int64_t cap = max_splitters;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {  // fewer splitters where a block takes few tiles
+      const int64_t per = (tiles + grid - 1) / grid;
+      if (per * kSplittersPerTile >= cap) break;
+      cap = per * kSplittersPerTile;
+    }
+    shift = 0;
+    while (((nb - 1) >> shift) + 1 > cap) ++shift;
+    nsplit = static_cast<int>(((nb - 1) >> shift) + 1);
+    smem = 16 + sizeof(typename Src::Value) *
+                    (2 * kWarps + static_cast<size_t>(nsplit) + kWindow);
+    cudaError_t err =
+        repro::smem_grid<kKernel>(kSmemThreads, smem, tiles, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (max_blocks > 0 && grid > max_blocks)
+      grid = static_cast<unsigned>(max_blocks);
+  }
+  kKernel<<<grid, kSmemThreads, smem, stream>>>(bp, nb, shift, nsplit,
+                                                bisect_steps(nsplit), src, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shared-memory route of a query source: 1 <= nb, the boundaries in at
+// most 232,448 bytes.
+template <bool kVec, typename Src>
+int smem_route(const typename Src::Value* bp, int64_t nb, Src src,
+               int32_t* op, bool right, int persistent, cudaStream_t s) {
+  if (nb < 1 ||
+      nb * static_cast<int64_t>(sizeof(typename Src::Value)) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return right ? launch_smem<bucketize_smem_kernel<true, kVec, Src>>(
+                     bp, nb, src, op, persistent, s)
+               : launch_smem<bucketize_smem_kernel<false, kVec, Src>>(
+                     bp, nb, src, op, persistent, s);
+}
+
+// The tiled route of a query source, any nb >= 1.
+template <bool kVec, typename Src>
+int tiled_route(const typename Src::Value* bp, int64_t nb, Src src,
+                int32_t* op, bool right, int64_t max_blocks,
+                int max_splitters, cudaStream_t s) {
+  return right ? launch_tiled<bucketize_tiled_kernel<true, kVec, Src>>(
+                     bp, nb, src, op, max_blocks, max_splitters, s)
+               : launch_tiled<bucketize_tiled_kernel<false, kVec, Src>>(
+                     bp, nb, src, op, max_blocks, max_splitters, s);
+}
+
+bool misaligned(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) != 0;
 }
 
 template <typename T>
 int launch(const void* b, int64_t nb, const void* q, int64_t nq, void* out,
            int flags, cudaStream_t stream) {
-  const int right = (flags >> 1) & 1, vec = (flags >> 3) & 1,
-            persistent = (flags >> 4) & 1;
+  const bool right = flags & 2, vec = flags & 8;
+  const int persistent = (flags >> 4) & 1;
   const T* bp = static_cast<const T*>(b);
-  const T* qp = static_cast<const T*>(q);
+  const DenseQueries<T> src{static_cast<const T*>(q), nq};
   int32_t* op = static_cast<int32_t*>(out);
-  if (nb < 1 || nb * static_cast<int64_t>(sizeof(T)) > 232448)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (vec && ((reinterpret_cast<uintptr_t>(qp) |
-               reinterpret_cast<uintptr_t>(op)) & 15) != 0)
+  if (vec && misaligned(q, out))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return right ? launch_smem_route<T, true>(bp, nb, qp, op, nq, vec,
-                                            persistent, stream)
-               : launch_smem_route<T, false>(bp, nb, qp, op, nq, vec,
-                                             persistent, stream);
-}
-
-template <auto kKernel, typename T>
-int launch_tiled(const T* bp, int64_t nb, const T* qp, int32_t* op,
-                 int64_t nq, int64_t max_blocks, int max_splitters,
-                 cudaStream_t stream) {
-  int shift = 0;
-  while (((nb - 1) >> shift) + 1 > max_splitters) ++shift;
-  const int nsplit = static_cast<int>(((nb - 1) >> shift) + 1);
-  const size_t smem =
-      16 + sizeof(T) * (2 * kWarps + static_cast<size_t>(nsplit) + kWindow);
-  const int64_t tiles = (nq + kCountTile - 1) / kCountTile;
-  unsigned grid = 0;
-  cudaError_t err = repro::smem_grid<kKernel>(kSmemThreads, smem, tiles, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (max_blocks > 0 && grid > max_blocks)
-    grid = static_cast<unsigned>(max_blocks);
-  kKernel<<<grid, kSmemThreads, smem, stream>>>(
-      bp, nb, shift, nsplit, bisect_steps(nsplit), qp, op, nq);
-  return static_cast<int>(cudaGetLastError());
+  return vec ? smem_route<true>(bp, nb, src, op, right, persistent, stream)
+             : smem_route<false>(bp, nb, src, op, right, persistent, stream);
 }
 
 template <typename T>
 int launch_count(const void* b, int64_t nb, const void* q, int64_t nq,
                  void* out, int flags, int64_t max_blocks, int max_splitters,
                  cudaStream_t s) {
-  const T* bp = static_cast<const T*>(b);
-  const T* qp = static_cast<const T*>(q);
-  int32_t* op = static_cast<int32_t*>(out);
   const bool right = flags & 2, vec = flags & 8;
-  if (vec && ((reinterpret_cast<uintptr_t>(qp) |
-               reinterpret_cast<uintptr_t>(op)) & 15) != 0)
+  const T* bp = static_cast<const T*>(b);
+  const DenseQueries<T> src{static_cast<const T*>(q), nq};
+  int32_t* op = static_cast<int32_t*>(out);
+  if (vec && misaligned(q, out))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  if (right)
-    return vec ? launch_tiled<bucketize_tiled_kernel<T, true, true>>(
-                     bp, nb, qp, op, nq, max_blocks, max_splitters, s)
-               : launch_tiled<bucketize_tiled_kernel<T, true, false>>(
-                     bp, nb, qp, op, nq, max_blocks, max_splitters, s);
-  return vec ? launch_tiled<bucketize_tiled_kernel<T, false, true>>(
-                   bp, nb, qp, op, nq, max_blocks, max_splitters, s)
-             : launch_tiled<bucketize_tiled_kernel<T, false, false>>(
-                   bp, nb, qp, op, nq, max_blocks, max_splitters, s);
+  return vec ? tiled_route<true>(bp, nb, src, op, right, max_blocks,
+                                 max_splitters, s)
+             : tiled_route<false>(bp, nb, src, op, right, max_blocks,
+                                  max_splitters, s);
 }
 
 }  // namespace
@@ -492,6 +569,34 @@ extern "C" int repro_bucketize_count(const void* boundaries, int64_t nb,
                                    max_blocks, max_splitters, s)
              : launch_count<int32_t>(boundaries, nb, queries, nq, out, flags,
                                      max_blocks, max_splitters, s);
+}
+
+// bucketize_packed_kernel: int32 boundaries [nb] (sorted, nb >= 1) against
+// the nvals packed queries of `words` (nwords uint32 lanes of bits-bit codes
+// plus offset, any 4-byte alignment); out: int32 counts [nvals], 16-byte
+// aligned. flags: 2 right (as repro_bucketize); 32 tiled: the tiled route
+// (max_blocks, max_splitters as repro_bucketize_count's), else the
+// shared-memory route (nb * 4 <= 232,448 bytes; 16 persistent as
+// repro_bucketize's). Each thread takes four consecutive queries.
+extern "C" int repro_bucketize_packed(const void* boundaries, int64_t nb,
+                                      const void* words, int64_t nwords,
+                                      int bits, int32_t offset, int64_t nvals,
+                                      void* out, int flags, int64_t max_blocks,
+                                      int max_splitters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bits < 1 || bits > 32 || nb < 1 || max_splitters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nvals <= 0) return 0;
+  if (misaligned(out, out)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const PackedQueries src{repro::make_packed(words, nwords, bits, offset),
+                          nvals};
+  const int32_t* bp = static_cast<const int32_t*>(boundaries);
+  int32_t* op = static_cast<int32_t*>(out);
+  const bool right = flags & 2;
+  if (flags & 32)
+    return tiled_route<true>(bp, nb, src, op, right, max_blocks,
+                             max_splitters, s);
+  return smem_route<true>(bp, nb, src, op, right, (flags >> 4) & 1, s);
 }
 
 extern "C" const char* repro_bucketize_error_string(int err) {

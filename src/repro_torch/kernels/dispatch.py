@@ -41,9 +41,11 @@ Differences from ``repro.kernels.dispatch``:
     wrap alike in any order, and a reduction replaces the atomics that a
     scatter-add piles onto one address (G = 1 for an ungrouped COUNT).
   * Packed queries and packed run values (``PackedColumn``) route to the
-    fused kernels of ``kernels/unpack.py``. The reference's
-    ``MAX_VMEM_WORDS`` ceiling (2M words, a TPU VMEM budget) is gone: the
-    H100 kernels read the words through L2.
+    fused kernels of ``kernels/unpack.py``. Inside ``unpack_once`` (one
+    query program) each packed leaf is unpacked once, where the reference
+    relies on XLA to merge the repeated expansions of one jitted program.
+    The reference's ``MAX_VMEM_WORDS`` ceiling (2M words, a TPU VMEM
+    budget) is gone: the H100 kernels read the words through L2.
   * ``topk`` takes ``topk_kernel`` (``kernels/topk.py``) for int32 /
     float32 keys and ``1 <= k <= min(topk_max_k, MAX_KERNEL_K)``; other
     calls take the plain stable sort (``ref.topk``), where the reference
@@ -54,6 +56,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -253,10 +256,44 @@ def _off_reason(pol: DispatchPolicy) -> str:
     return "kernels off" if pol.use_kernels is False else "inputs not on CUDA"
 
 
+_SCOPE = threading.local()  # .memo: id(leaf) -> (leaf, unpacked), or None
+
+
+@contextlib.contextmanager
+def unpack_once():
+    """Within this scope each ``PackedColumn`` leaf is expanded once: the
+    first ``unpack`` of a leaf launches, later reads of the same leaf get
+    the same tensor (the eager counterpart of the common-subexpression
+    elimination XLA applies inside the reference's jitted program). One
+    query program (``plan.Query.build``) is one scope; nested scopes join
+    the outer one. The memo keys leaves by identity and holds each leaf,
+    so no id is reused while it lives, and it is dropped when the scope
+    ends. Readers of an unpacked leaf never write into it (the results of
+    the port's operators are new tensors)."""
+    if getattr(_SCOPE, "memo", None) is not None:
+        yield
+        return
+    _SCOPE.memo = {}
+    try:
+        yield
+    finally:
+        _SCOPE.memo = None
+
+
 def unpack(packed) -> torch.Tensor:
     """Expand a ``PackedColumn`` buffer leaf to its logical int32 values:
     the CUDA ``unpack_kernel`` when the policy allows, else the plain
-    ``ref_unpack``."""
+    ``ref_unpack``; once per leaf inside ``unpack_once``."""
+    memo = getattr(_SCOPE, "memo", None)
+    if memo is None:
+        return _unpack(packed)
+    hit = memo.get(id(packed))
+    if hit is None:
+        hit = memo[id(packed)] = (packed, _unpack(packed))
+    return hit[1]
+
+
+def _unpack(packed) -> torch.Tensor:
     pol = policy()
     n, words = packed.nrows, packed.words
     on = pol.kernels_enabled(words)
@@ -289,10 +326,10 @@ def bucketize(boundaries: torch.Tensor, queries, right: bool = True
             _route("bucketize", "kernel_packed_fused",
                    f"n_q={n_q}>=bucketize_min_queries="
                    f"{pol.bucketize_min_queries}, n_b={n_b} "
-                   + ("fits shared memory" if n_b <= smem else "through L2"))
+                   + ("fits shared memory" if n_b <= smem else "tiled"))
             return bucketize_packed_kernel(
                 boundaries.contiguous(), words, queries.bit_width,
-                queries.offset, n_q, right, global_route=n_b > smem)
+                queries.offset, n_q, right, tiled=n_b > smem)
         queries = unpack(queries)
     n_b, n_q = boundaries.shape[0], queries.shape[0]
     on = pol.kernels_enabled(boundaries, queries)

@@ -1,18 +1,24 @@
-"""Bit-packed columns on the H100: wrappers of ``csrc/unpack.cu``.
+"""Bit-packed columns on the H100: wrappers of ``csrc/unpack.cu`` and of
+``csrc/bucketize.cu``'s packed entry.
 
 A packed stream holds unsigned ``bit_width``-bit codes densely in 32-bit
 lanes (value ``i`` in bits ``[i*b, i*b + b)``, little-endian within a
-lane); the logical value is ``code + offset`` in int32 (DESIGN.md §11).
-The port keeps the lanes in an int32 tensor holding the same bit
-patterns, since torch has no full uint32 arithmetic. Ported from the
-three Pallas kernels of ``repro.kernels.unpack``:
+lane); the logical value is ``code + offset`` in int32 (DESIGN.md §11,
+``csrc/packed.cuh``). The port keeps the lanes in an int32 tensor holding
+the same bit patterns, since torch has no full uint32 arithmetic. Ported
+from the three Pallas kernels of ``repro.kernels.unpack``:
 
   * ``unpack_kernel`` — standalone expansion to int32 (every packed
-    buffer read through ``encodings.unpack_values``),
+    buffer read through ``encodings.unpack_values``; inside one query
+    program each leaf once, ``dispatch.unpack_once``): a warp expands
+    128 values a step from their 4b lanes, staged with 16-byte loads, four
+    values a lane with one 16-byte store; the ragged tail and unaligned
+    words take one value a thread,
   * ``bucketize_packed_kernel`` — ``bucketize(boundaries, unpack(words))``
-    with the codes extracted in registers (semi-join and PK-FK probes on
-    packed keys); shared-memory boundaries up to ``MAX_SMEM_BOUNDARIES``,
-    the L2 route above,
+    on ``bucketize.cu``'s two routes with the packed query source (four
+    consecutive codes a thread, extracted in registers): the shared-memory
+    route up to ``MAX_SMEM_BOUNDARIES``, the tiled route above (sorted
+    tiles search a window of boundaries, others the splitters and L2),
   * ``rle_decode_packed_kernel`` — RLE expansion whose run value is
     extracted from the packed words at the run id, on the tile walk of
     ``rle_decode_kernel`` (``csrc/rle_tile.cuh``): once a tile inside one
@@ -21,7 +27,8 @@ three Pallas kernels of ``repro.kernels.unpack``:
 The plain versions are ``ref.ref_unpack``, ``ref.ref_bucketize_packed``
 and ``ref.ref_rle_decode_packed``; the wrappers run them for CPU tensors.
 Wrappers check device, dtype, contiguity and the word count, return
-without a launch for empty outputs, and count each launch.
+without a launch for empty outputs, and count each launch. ``max_blocks``
+caps a grid; no output depends on it.
 """
 from __future__ import annotations
 
@@ -31,32 +38,47 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.bucketize import MAX_SMEM_BOUNDARIES
+from repro_torch.kernels.bucketize import (MAX_SMEM_BOUNDARIES, PERSISTENT,
+                                           SPLITTERS, TILE)
 from repro_torch.kernels.rle_decode import fill_bits
 
 _SOURCE = "unpack.cu"
-_ENTRIES: Optional[Tuple[ctypes.CDLL, object, object, object]] = None
+_ENTRIES: Optional[Tuple[ctypes.CDLL, object, object]] = None
+_PACKED_ENTRY: Optional[Tuple[ctypes.CDLL, object]] = None
+# repro_bucketize_packed's flag bits beside bucketize.py's: the tiled route
+# (else the boundaries staged in shared memory)
+TILED = 32
 
 
 def _entries():
-    """The library and its three C entries, bound once."""
+    """The library and its two C entries, bound once."""
     global _ENTRIES
     if _ENTRIES is None:
         lib = _build.library(_SOURCE)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-        lib.repro_unpack.argtypes = [p, i64, ctypes.c_int, i32, i64, p, p]
-        lib.repro_bucketize_packed.argtypes = [p, i64, p, i64, ctypes.c_int,
-                                               i32, i64, p, ctypes.c_int,
-                                               ctypes.c_int, p]
+        lib.repro_unpack.argtypes = [p, i64, ctypes.c_int, i32, i64, p, i64,
+                                     p]
         lib.repro_rle_decode_packed.argtypes = [p, i64, ctypes.c_int, i32, p,
                                                 p, p, i64, i64, i32, p, i64,
                                                 p]
-        for fn in (lib.repro_unpack, lib.repro_bucketize_packed,
-                   lib.repro_rle_decode_packed):
+        for fn in (lib.repro_unpack, lib.repro_rle_decode_packed):
             fn.restype = ctypes.c_int
-        _ENTRIES = (lib, lib.repro_unpack, lib.repro_bucketize_packed,
-                    lib.repro_rle_decode_packed)
+        _ENTRIES = (lib, lib.repro_unpack, lib.repro_rle_decode_packed)
     return _ENTRIES
+
+
+def _packed_entry():
+    """``bucketize.cu``'s library and its packed entry, bound once."""
+    global _PACKED_ENTRY
+    if _PACKED_ENTRY is None:
+        lib = _build.library("bucketize.cu")
+        fn = lib.repro_bucketize_packed
+        p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn.argtypes = [p, i64, p, i64, c_int, ctypes.c_int32, i64, p, c_int,
+                       i64, c_int, p]
+        fn.restype = ctypes.c_int
+        _PACKED_ENTRY = (lib, fn)
+    return _PACKED_ENTRY
 
 
 def nwords_for(nvals: int, bit_width: int) -> int:
@@ -88,7 +110,8 @@ def _check_words(words: torch.Tensor, bit_width: int, nvals: int,
 
 
 def unpack_kernel(words: torch.Tensor, bit_width: int, offset,
-                  nvals: int) -> torch.Tensor:
+                  nvals: int, max_blocks: Optional[int] = None
+                  ) -> torch.Tensor:
     """Expand a packed stream to int32[nvals]."""
     _check_words(words, bit_width, nvals, "unpack")
     if words.device.type == "cpu":
@@ -96,10 +119,10 @@ def unpack_kernel(words: torch.Tensor, bit_width: int, offset,
     out = torch.empty((nvals,), dtype=torch.int32, device=words.device)
     if nvals == 0:
         return out
-    lib, fn, _, _ = _ENTRIES or _entries()
+    lib, fn, _ = _ENTRIES or _entries()
     err = _build.run_on(words.get_device(), fn, words.data_ptr(),
                         words.shape[0], int(bit_width), int32_offset(offset),
-                        nvals, out.data_ptr())
+                        nvals, out.data_ptr(), int(max_blocks or 0))
     if err:
         _build.check(lib, err, "unpack_kernel", "repro_unpack_error_string")
     _build.count_launch("unpack_kernel", nvals,
@@ -111,12 +134,14 @@ def unpack_kernel(words: torch.Tensor, bit_width: int, offset,
 
 def bucketize_packed_kernel(boundaries: torch.Tensor, words: torch.Tensor,
                             bit_width: int, offset, nvals: int,
-                            right: bool = True,
-                            global_route: Optional[bool] = None
-                            ) -> torch.Tensor:
+                            right: bool = True, tiled: Optional[bool] = None,
+                            max_blocks: Optional[int] = None,
+                            max_splitters: int = SPLITTERS) -> torch.Tensor:
     """``bucketize(boundaries, unpack(words))`` -> int32 counts, without the
-    unpacked queries in device memory. ``global_route`` None picks the
-    shared-memory route while the boundaries fit it."""
+    unpacked queries in device memory. ``tiled`` None takes the
+    shared-memory route while the boundaries fit it, the tiled route above;
+    ``max_blocks`` and ``max_splitters`` are the tiled route's (as
+    ``bucketize_count_kernel``'s) and change no count."""
     _check_words(words, bit_width, nvals, "bucketize_packed")
     if not isinstance(boundaries, torch.Tensor) or boundaries.dim() != 1 \
             or not boundaries.is_contiguous():
@@ -132,9 +157,9 @@ def bucketize_packed_kernel(boundaries: torch.Tensor, words: torch.Tensor,
         return ref.ref_bucketize_packed(boundaries, words, bit_width, offset,
                                         nvals, right)
     nb = boundaries.shape[0]
-    if global_route is None:
-        global_route = nb > MAX_SMEM_BOUNDARIES
-    if not global_route and nb > MAX_SMEM_BOUNDARIES:
+    if tiled is None:
+        tiled = nb > MAX_SMEM_BOUNDARIES
+    if not tiled and nb > MAX_SMEM_BOUNDARIES:
         raise ValueError(f"bucketize_packed: {nb} boundaries exceed one "
                          f"block's shared memory ({MAX_SMEM_BOUNDARIES})")
     out = torch.empty((nvals,), dtype=torch.int32, device=words.device)
@@ -142,14 +167,16 @@ def bucketize_packed_kernel(boundaries: torch.Tensor, words: torch.Tensor,
         return out
     if nb == 0:
         return out.zero_()
-    lib, _, fn, _ = _ENTRIES or _entries()
+    flags = ((2 if right else 0)
+             | (TILED if tiled else PERSISTENT if nb > TILE else 0))
+    lib, fn = _PACKED_ENTRY or _packed_entry()
     err = _build.run_on(words.get_device(), fn, boundaries.data_ptr(), nb,
                         words.data_ptr(), words.shape[0], int(bit_width),
-                        int32_offset(offset), nvals, out.data_ptr(),
-                        int(bool(right)), int(bool(global_route)))
+                        int32_offset(offset), nvals, out.data_ptr(), flags,
+                        int(max_blocks or 0), int(max_splitters))
     if err:
         _build.check(lib, err, "bucketize_packed_kernel",
-                     "repro_unpack_error_string")
+                     "repro_bucketize_error_string")
     _build.count_launch("bucketize_packed_kernel", nb + nvals,
                         f"q={_build.pow2(nvals)} nb={_build.pow2(nb)} "
                         f"bits={int(bit_width)}",
@@ -190,7 +217,7 @@ def rle_decode_packed_kernel(words: torch.Tensor, bit_width: int, offset,
                           dtype=torch.int32, device=words.device)
     bits = fill_bits(fill, torch.int32)
     out = torch.empty((nrows,), dtype=torch.int32, device=words.device)
-    lib, _, _, fn = _ENTRIES or _entries()
+    lib, _, fn = _ENTRIES or _entries()
     err = _build.run_on(words.get_device(), fn, words.data_ptr(),
                         words.shape[0], int(bit_width), int32_offset(offset),
                         starts.data_ptr(), ends.data_ptr(), n.data_ptr(), cap,

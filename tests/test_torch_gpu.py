@@ -9,7 +9,8 @@ The module imports no JAX, so the card's machine runs it alone:
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (integer outputs and rle_decode exactly; segment_sum within the
 reference tests' rtol 1e-4 of a float64 host sum and bit-identical
-across launches; the three packed kernels exactly, on every bit width),
+across launches; the three packed kernels exactly, on every bit width, at grid caps and
+from words views at storage offsets 1-3),
 topk exactly, values and indices, bit-identical across launches and over
 several survivor passes), the stable argsorts of the ordering layer on
 CUDA against the CPU's and a numpy oracle (NaN last, ties in row order),
@@ -188,15 +189,48 @@ def _packed(rng, b, n, lo):
     return v, compress.pack_array(v, lo, b).view(np.int32), lo
 
 
+def _view_at(w, off, dev):
+    """The lanes ``w`` as a view at storage offset ``off`` (4 * off bytes
+    past a 16-byte boundary for off in 1..3)."""
+    buf = np.concatenate([np.full(off, -1, np.int32), w])
+    return _t(buf, dev)[off:]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32])
-@pytest.mark.parametrize("n", [0, 1, 33, 100_003])
+@pytest.mark.parametrize("n", [0, 1, 33, 127, 128, 129, 2047, 2048, 2049,
+                               100_003])
 def test_gpu_unpack_kernel_matches_plain(cuda_device, rng, b, n):
+    """Whole 128-value groups, the ragged last group and the scalar path of
+    words views at offsets 1-3 equal the plain version, at the resident
+    grid and capped ones."""
     v, w, lo = _packed(rng, b, n, -(1 << (b - 1)) if b < 32 else 0)
     ww = _t(w, cuda_device)
+    want = ref.ref_unpack(ww, b, lo, n)
     got = ku.unpack_kernel(ww, b, lo, n)
-    assert torch.equal(got, ref.ref_unpack(ww, b, lo, n))
+    assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(), v.astype(np.int32))
+    for grid in (1, 3):
+        assert torch.equal(ku.unpack_kernel(ww, b, lo, n, max_blocks=grid),
+                           want)
+    for off in (1, 2, 3):
+        view = _view_at(w, off, cuda_device)
+        assert view.storage_offset() == off
+        assert torch.equal(ku.unpack_kernel(view, b, lo, n), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", chip_smoke.UNPACK_CLASSES)
+def test_gpu_unpack_kernel_launch_classes(cuda_device, rng, n):
+    """Each launch class of the main path, 8 to 2^23 values at 24 bits,
+    at grid caps that must give the same bits."""
+    v, w, lo = _packed(rng, 24, n, -(1 << 23))
+    ww = _t(w, cuda_device)
+    want = ref.ref_unpack(ww, 24, lo, n)
+    np.testing.assert_array_equal(want.cpu().numpy(), v.astype(np.int32))
+    for grid in (None, 1, 7, 1000):
+        assert torch.equal(ku.unpack_kernel(ww, 24, lo, n, max_blocks=grid),
+                           want)
 
 
 @pytest.mark.gpu
@@ -214,7 +248,39 @@ def test_gpu_bucketize_packed_kernel_matches_plain(cuda_device, rng, b, nb):
         assert torch.equal(got, want)
         if nb <= ku.MAX_SMEM_BOUNDARIES:
             assert torch.equal(ku.bucketize_packed_kernel(
-                bb, ww, b, lo, v.size, right, global_route=True), want)
+                bb, ww, b, lo, v.size, right, tiled=True), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 9, 21, 24, 32])
+@pytest.mark.parametrize("pattern", chip_smoke.PACKED_PATTERNS)
+def test_gpu_bucketize_packed_kernel_tile_bound(cuda_device, b, pattern):
+    """The tiled route on the streamed semi-join's sorted, code-0 padded
+    queries (tiles of padding only, one across n_valid), random,
+    all-equal and above-every-boundary ones: equal to the plain version at
+    grid caps and splitter counts that change no count, from words views
+    at offsets 1-3, and on the shared-memory route at 4,064 boundaries."""
+    rng = np.random.default_rng(b + 100 * len(pattern))
+    bnd, v, w, lo = chip_smoke.packed_queries(rng, b, pattern, 300_001,
+                                              97_533, n_valid=140_000)
+    bb, ww, n = _t(bnd, cuda_device), _t(w, cuda_device), len(v)
+    small = bb[::24].contiguous()
+    for right in (True, False):
+        want = ref.ref_bucketize_packed(bb, ww, b, lo, n, right)
+        np.testing.assert_array_equal(
+            want.cpu().numpy(), np.searchsorted(
+                bnd, v.astype(np.int32), side="right" if right else "left"))
+        for kw in ({}, {"max_blocks": 1}, {"max_blocks": 5},
+                   {"max_splitters": 64}, {"max_splitters": 1 << 14}):
+            assert torch.equal(ku.bucketize_packed_kernel(
+                bb, ww, b, lo, n, right, **kw), want), kw
+        for off in (1, 2, 3):
+            assert torch.equal(ku.bucketize_packed_kernel(
+                bb, _view_at(w, off, cuda_device), b, lo, n, right), want)
+        want = ref.ref_bucketize_packed(small, ww, b, lo, n, right)
+        for tiled in (False, True):
+            assert torch.equal(ku.bucketize_packed_kernel(
+                small, ww, b, lo, n, right, tiled=tiled), want)
 
 
 @pytest.mark.gpu

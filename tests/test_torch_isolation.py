@@ -98,13 +98,15 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def test_every_cuda_source_is_built_with_a_plain_c_interface():
     """Every ``.cu`` under ``csrc/`` is one of ``_build.SOURCES`` and every
-    header one of ``_build.HEADERS``; none includes PyTorch's headers (the
+    header one of ``_build.headers()`` (all of them, hashed into the build
+    directory's name); none includes PyTorch's headers (the
     libraries are plain ``extern "C"`` loaded with ctypes), and each
     source names the TPU kernel it replaces."""
     from repro_torch.kernels import _build
     csrc = PORT / "kernels" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.SOURCES)
-    assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(_build.HEADERS)
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == list(_build.headers())
+    assert "packed.cuh" in _build.headers()
     for path in sorted(csrc.iterdir()):
         text = path.read_text()
         assert "torch/" not in text and "ATen/" not in text, path.name
@@ -124,5 +126,19 @@ def test_kernel_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     copy = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, copy)
     (copy / "bisect.cuh").write_text((copy / "bisect.cuh").read_text() + "\n")
+    monkeypatch.setattr(_build, "CSRC", copy)
+    assert _build.source_digest() != before
+
+
+@pytest.mark.parametrize("edit", ["packed.cuh", "rle_tile.cuh", "new.cuh"])
+def test_kernel_build_hash_covers_every_header(tmp_path, monkeypatch, edit):
+    """An edit to any header, or a new one, gives a new build directory:
+    the digest hashes every ``csrc/*.cuh``, not a hand-kept list."""
+    from repro_torch.kernels import _build
+    before = _build.source_digest()
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    path = copy / edit
+    path.write_text((path.read_text() if path.exists() else "") + "\n")
     monkeypatch.setattr(_build, "CSRC", copy)
     assert _build.source_digest() != before

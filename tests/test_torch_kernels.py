@@ -24,10 +24,11 @@ from repro_torch.kernels import unpack as ku
 from repro_torch.kernels.rle_decode import fill_bits, rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 
-from torch_twins import (BUCKETIZE_CASES, RLE_CASES, RLE_DRAWS, TOPK_CASES,
-                         I32MIN, assert_close, assert_same, bucketize_cases,
-                         bucketize_tiles_emulated, host, packed_values,
-                         rle_case, rle_draw, rle_tiles_emulated,
+from torch_twins import (BUCKETIZE_CASES, PACKED_PATTERNS, RLE_CASES,
+                         RLE_DRAWS, TOPK_CASES, I32MIN, assert_close, assert_same, bucketize_cases,
+                         bucketize_packed_tiles_emulated,
+                         bucketize_tiles_emulated, host, packed_queries,
+                         packed_values, rle_case, rle_draw, rle_tiles_emulated,
                          segment_sum_emulated, topk_case)
 
 
@@ -882,3 +883,42 @@ def test_rle_tiles_window_bound():
     got, routes, _ = _tiles(vals, starts, ends, n, nrows, fill)
     np.testing.assert_array_equal(got, want)
     assert set(routes) == {"window"}, routes
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32])
+@pytest.mark.parametrize("pattern", PACKED_PATTERNS)
+@pytest.mark.parametrize("right", [True, False])
+def test_bucketize_packed_tile_walk_matches_reference_kernel(b, pattern,
+                                                             right):
+    """``bucketize_packed_kernel``'s tiled route in numpy (four consecutive
+    codes a thread from their at most five lanes, then each 2048-query
+    tile bounded by its min and max counts) equals the reference kernel in
+    interpret mode on ``chip_smoke.packed_queries`` (8,192 queries, 4,500
+    sorted then code 0, against 3,000 boundaries), with the kernel's splitter count and window and with
+    few splitters and a small window. On the sorted, padded queries every
+    tile of padding has lo == hi, the tile across n_valid takes the
+    splitter route; random queries take it everywhere."""
+    rng = np.random.default_rng(b * 8 + PACKED_PATTERNS.index(pattern))
+    bnd, v, w32, lo = packed_queries(rng, b, pattern, 8192, 3000, 4500)
+    n = len(v)
+    want = np.asarray(junpack.bucketize_packed_kernel(
+        jnp.asarray(bnd), jnp.asarray(w32.view(np.uint32)), b, lo, n, right,
+        interpret=True))
+    np.testing.assert_array_equal(
+        want, np.searchsorted(bnd, v.astype(np.int32),
+                              side="right" if right else "left"))
+    for splitters, window in ((kb.SPLITTERS, kb.WINDOW), (64, 128)):
+        got, routes, bounds = bucketize_packed_tiles_emulated(
+            bnd, w32, b, lo, n, right, splitters, window, kb.COUNT_TILE)
+        np.testing.assert_array_equal(got, want)
+        if pattern in ("all_equal", "above_all"):
+            assert all(lo_ == hi for lo_, hi in bounds), bounds
+        if b < 16 or window < kb.WINDOW:
+            continue  # narrow domains: few distinct values a tile
+        if pattern == "sorted_padded":  # tiles 0-1 sorted, 2 across n, 3 pad
+            assert routes == ["window", "window", "splitter", "window"]
+            assert bounds[3][0] == bounds[3][1]
+        if pattern == "random":
+            assert set(routes) == {"splitter"}, routes
+    assert_same(want, ku.bucketize_packed_kernel(_t(bnd), _t(w32), b, lo, n,
+                                                 right))

@@ -12,7 +12,10 @@ and ``repro_torch`` on the CPU:
      the three kernel wrappers when ``use_kernels=True``;
   3. packed encoded buffers equal the reference's through ``convert``,
      and packed queries give the reference's answers on the six encodings;
-  4. footprint accounting (``nbytes_unpacked``) and the pack policy switch.
+  4. footprint accounting (``nbytes_unpacked``) and the pack policy switch;
+  5. ``unpack_kernel``'s group walk (``torch_twins.unpack_groups_emulated``:
+     128 values a warp from 4b staged lanes, four a lane, the scalar tail
+     and unaligned words) equals the reference kernel in interpret mode.
 
 Integers compare exactly; float sums within rtol 1e-4, the reference
 tests' tolerance.
@@ -38,7 +41,7 @@ from repro_torch.kernels import unpack as tunpack
 
 from torch_twins import (CPU, SIX_ENCODINGS, assert_payload_close, assert_same,
                          assert_same_encoded, describe_table, result_payload,
-                         six_encoding_data)
+                         six_encoding_data, unpack_groups_emulated)
 
 
 def _codes(rng, b, n, lo=None):
@@ -406,3 +409,60 @@ def test_packed_column_metadata_probes():
     j = JE.PackedColumn(words=jnp.asarray(jc.pack_array(v, 0, 4)), nrows=10,
                         bit_width=4, offset=0)
     assert_same_encoded(j, pc)
+
+
+# ---------------------------------------------------------------------------
+# 5. unpack_kernel's group walk
+# ---------------------------------------------------------------------------
+
+PACK_WIDTHS = [1, 2, 3, 7, 8, 9, 16, 21, 24, 31, 32]
+GROUP_NS = [0, 1, 127, 128, 129, 2047, 2048, 2049, 5003]
+
+
+def _reference_unpack(w, b, lo, n):
+    """The reference kernel in interpret mode; at n = 0, which its grid
+    cannot take, the reference's plain version."""
+    if n == 0:
+        return np.asarray(jref.ref_unpack(jnp.asarray(w), b, lo, 0))
+    return np.asarray(junpack.unpack_kernel(jnp.asarray(w), b, lo, n,
+                                            interpret=True))
+
+
+@pytest.mark.parametrize("b", PACK_WIDTHS)
+@pytest.mark.parametrize("n", GROUP_NS)
+def test_unpack_group_walk_matches_reference_kernel(rng, b, n):
+    """Full groups of 128 values stage exactly their 4b lanes and each lane
+    expands four values; the ragged tail (n % 128) takes the scalar path.
+    Exact against the reference kernel and the plain version."""
+    v, lo = _codes(rng, b, n)
+    w, w32 = _words(v, lo, b)
+    want = _reference_unpack(w, b, lo, n)
+    got, routes = unpack_groups_emulated(w, b, lo, n)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, v.astype(np.int32))
+    assert routes == ["group"] * (n // 128) + ["scalar"] * (n % 128 > 0)
+    np.testing.assert_array_equal(tunpack.unpack_kernel(w32, b, lo, n).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("b", PACK_WIDTHS)
+def test_unpack_walk_on_unaligned_word_views(rng, b):
+    """Words viewed at storage offsets 1-3 (4-12 bytes past a 16-byte
+    boundary) take the scalar path for every group; offset 4 takes the
+    group walk again. Same values either way."""
+    for n in (2049, 777):
+        v, lo = _codes(rng, b, n)
+        w, _ = _words(v, lo, b)
+        want = _reference_unpack(w, b, lo, n)
+        for off in (1, 2, 3, 4):
+            buf = np.concatenate([rng.integers(0, 2**32, off, dtype=np.uint32),
+                                  w])
+            view = torch.from_numpy(buf.view(np.int32))[off:]
+            assert view.storage_offset() == off
+            aligned = (4 * off) % 16 == 0
+            got, routes = unpack_groups_emulated(view.numpy(), b, lo, n,
+                                                 aligned=aligned)
+            np.testing.assert_array_equal(got, want)
+            assert ("group" in routes) == aligned, (off, routes)
+            np.testing.assert_array_equal(
+                tunpack.unpack_kernel(view, b, lo, n).numpy(), want)

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RLE_DRAWS, packed_values, rle_draw  # noqa: F401
+from chip_smoke import (PACKED_PATTERNS, RLE_DRAWS,  # noqa: F401
+                        packed_queries, packed_values, rle_draw)
 
 # JAX dtype names -> torch dtypes, for the dtype half of every comparison
 _NP_OF_TORCH = {
@@ -423,13 +424,14 @@ def _segment_sum_chunks(v_all, ids, g, route, chunk, order, partial, zero,
 
 
 def bucketize_tiles_emulated(b, q, right=True, max_splitters=4096,
-                             window=2048, tile=2048):
+                             window=2048, tile=2048, bounds=None):
     """``bucketize_count_kernel``'s tiled route in numpy: counts and the
     route each tile took ("window" or "splitter"). Splitter s of the
     staged ones is b[s << shift]; a tile's min and max (NaN above every
     number) are counted by the splitters and rounds of 64 probes; the
     window route searches b[lo, hi), the splitter route finishes each
-    query's last ``shift`` levels."""
+    query's last ``shift`` levels. A list ``bounds`` gets each tile's
+    (lo, hi)."""
     b, q = np.asarray(b), np.asarray(q)
     nb = len(b)
 
@@ -486,6 +488,8 @@ def bucketize_tiles_emulated(b, q, right=True, max_splitters=4096,
         qmin = qt[~nan].min() if (~nan).any() else qt[0]
         qmax = qt[nan][0] if nan.any() else qt.max()
         lo, hi = count_warp(qmin), count_warp(qmax)
+        if bounds is not None:
+            bounds.append((lo, hi))
         if hi - lo <= window:
             routes.append("window")
             side = "right" if right else "left"
@@ -494,6 +498,99 @@ def bucketize_tiles_emulated(b, q, right=True, max_splitters=4096,
             routes.append("splitter")
             out[t0:t0 + tile] = [splitter_count(x) for x in qt]
     return out, routes
+
+
+def _codes4(x, s0, b, offset):
+    """``packed.cuh``'s codes4: the four values at bit offsets s0 + j*b of
+    the five lanes ``x`` (uint32), each from lanes k and k + 1 by a funnel
+    shift, masked, plus ``offset`` as an int32 wrap-add."""
+    x = [int(w) for w in x]
+    mask = (1 << b) - 1
+    out = []
+    for j in range(4):
+        o = s0 + j * b
+        k = o >> 5
+        assert k <= 3, (s0, b)
+        window = x[k] | (x[k + 1] << 32)
+        out.append(((window >> (o & 31)) & mask) + offset)
+    return np.array(out, np.int64).astype(np.uint32).view(np.int32)
+
+
+def _extract(words, i, b, offset):
+    """``packed.cuh``'s extract(): value i from lanes w and w + 1 (0 past
+    the stream's end)."""
+    bit = i * b
+    w, s = bit >> 5, bit & 31
+    hi = int(words[w + 1]) if w + 1 < len(words) else 0
+    code = ((int(words[w]) | (hi << 32)) >> s) & ((1 << b) - 1)
+    return np.array([code + offset], np.int64).astype(np.uint32).view(
+        np.int32)[0]
+
+
+def extract4_emulated(words, i, b, offset):
+    """``packed.cuh``'s extract4: values i .. i + 3 from the ``need`` lanes
+    that cover them (at most five), lanes past the stream or past ``need``
+    read as 0."""
+    words = np.asarray(words).view(np.uint32)
+    bit = i * b
+    w, s0 = bit >> 5, bit & 31
+    need = (s0 + 4 * b + 31) >> 5
+    assert need <= 5
+    x = [int(words[w + k]) if k < need and w + k < len(words) else 0
+         for k in range(5)]
+    return _codes4(x, s0, b, offset)
+
+
+def unpack_groups_emulated(words, b, offset, n, aligned=True, group=128):
+    """``unpack_kernel``'s walk in numpy: the output and each group's route.
+    With ``aligned`` (words and output 16-byte aligned) every full group of
+    ``group`` values stages its 4b lanes (from lane 4b*g: b 16-byte loads)
+    and each of 32 lanes takes its four consecutive values from the lanes
+    it needs of the staged row (``codes4``), asserting it reads no lane
+    outside the row; the ragged last group, and every group when not
+    ``aligned``, take extract() a value ("scalar")."""
+    words = np.asarray(words).view(np.uint32)
+    out = np.zeros(n, np.int32)
+    groups = -(-n // group)
+    full = n // group if aligned else 0
+    routes = []
+    assert group * b % 128 == 0  # a group is a whole number of 16-byte loads
+    for g in range(groups):
+        if g < full:
+            routes.append("group")
+            row = words[4 * b * g:4 * b * (g + 1)]
+            assert len(row) == 4 * b
+            for lane in range(group // 4):
+                bit0 = 4 * lane * b
+                w0, s0 = bit0 >> 5, bit0 & 31
+                need = (s0 + 4 * b + 31) >> 5
+                assert w0 + need <= len(row)  # only the group's own lanes
+                x = [int(row[w0 + k]) if k < need else 0 for k in range(5)]
+                out[g * group + 4 * lane:g * group + 4 * lane + 4] = _codes4(
+                    x, s0, b, offset)
+        else:
+            routes.append("scalar")
+            for i in range(g * group, min((g + 1) * group, n)):
+                out[i] = _extract(words, i, b, offset)
+    return out, routes
+
+
+def bucketize_packed_tiles_emulated(boundaries, words, b, offset, n,
+                                    right=True, max_splitters=4096,
+                                    window=2048, tile=2048):
+    """``bucketize_packed_kernel``'s tiled route in numpy: each thread's
+    four consecutive queries by ``extract4_emulated`` (the ragged end by
+    extract()), then the tile plan of ``bucketize_tiles_emulated``.
+    Returns the counts, each tile's route and its (lo, hi)."""
+    q = np.zeros(n, np.int32)
+    for i in range(0, n - n % 4, 4):
+        q[i:i + 4] = extract4_emulated(words, i, b, offset)
+    for i in range(n - n % 4, n):
+        q[i] = _extract(np.asarray(words).view(np.uint32), i, b, offset)
+    bounds = []
+    counts, routes = bucketize_tiles_emulated(
+        np.asarray(boundaries), q, right, max_splitters, window, tile, bounds)
+    return counts, routes, bounds
 
 
 def _warp_count(ends, lb, x):

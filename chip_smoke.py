@@ -82,7 +82,27 @@ first error:
    resident, and R2 must prune partitions by rank. Launch counts are zeroed
    just before the phase and read just after; the run fails if
    ``topk_kernel`` was not launched.
-6. Kernel timing at the largest inputs the main path gave each kernel:
+6. Serving phase (``core/serve.py``): a ``QueryServer`` over the
+   Q1-ordered packed partitions of the ordering phase (ORDERS resident)
+   answers a mix of 7 shapes: Q1, Q1s (Q1 cut at ``shipdate <= 2000``),
+   Q6, Q17, Q3, Q3r and R1 (row terminal: the solo path). Each shape is
+   first run alone (``PartitionedQuery.run()``, depth 2) and checked
+   against its numpy oracle on this table's arrays. Server A holds the
+   whole table (``budget_bytes=nbytes()``, ``max_batch=8``, drain
+   thread): four client threads submit the mix in seeded orders, a cold
+   round and a warm round; the warm round must hit the plan cache on
+   every submission and move no H2D byte (``telemetry.h2d_listener``).
+   Server B holds a third of the table: the mix queued once and stepped,
+   which must evict and split into several batches. Every served answer
+   must be bit-identical to its solo run and match the oracle; a failed
+   ticket or a dead drain thread fails the run. One JSON line a round
+   (QPS, p50/p99/mean latency, plan-cache and residency hits, misses and
+   evictions, resident bytes, scan passes shared and solo, H2D bytes,
+   launches a kernel), beside the card's name and power limit. Launch
+   counts are zeroed after the solo runs and read after server B; the
+   run fails if ``unpack_kernel``, ``segment_sum_kernel`` or
+   ``topk_kernel`` was not launched.
+7. Kernel timing at the largest inputs the main path gave each kernel:
    kernel, plain-version and (where one PyTorch call computes the same
    function) library times by CUDA events, beside the least time the card
    could take (bytes over 3.35 TB/s, or operations over 67 TFLOP/s,
@@ -102,7 +122,7 @@ first error:
    beside ``torch.searchsorted`` at Q17's semi-join shape and at Q3's
    shape with random queries. The two RLE decoders add their device time
    a call (``device_ms``, ``torch.profiler``).
-7. A ``launches`` line (per phase: launches, and a tally by shape class,
+8. A ``launches`` line (per phase: launches, and a tally by shape class,
    ``_build.SHAPES``), a ``{"kernels": [...]}`` summary line, then as the
    last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -165,6 +185,12 @@ OOC_QUERIES = ("Q1", "Q6", "Q17", "Q3")  # the out-of-core phase's queries
 # the ordering phase's queries and the LINEITEM sort order each reads
 RANKED_SOURCE = {"R1": "Q1", "R2": "Q6", "Q3r": "Q3"}
 ORDER_KERNELS = ("topk_kernel",)
+# the serving phase's mix (7 shapes over one packed LINEITEM), the table
+# it serves, and the kernels its run must launch
+SERVE_MIX = ("Q1", "Q1s", "Q6", "Q17", "Q3", "Q3r", "R1")
+SERVE_SOURCE = "Q1"
+SERVE_KERNELS = ("unpack_kernel", "segment_sum_kernel", "topk_kernel")
+SERVE_CLIENTS = 4
 # bucketize_count_kernel's edge cases: boundary counts (just above the
 # shared-memory route, Q17's semi-join, Q3's join probe) and query patterns
 COUNT_NB = (58_113, 97_532, 1 << 23)
@@ -245,21 +271,29 @@ def make_orders(rng, n_orders):
 # ---------------------------------------------------------------------------
 
 
+def rev(env):
+    """Q6's and Q19's ``price * discount``: one function for every query,
+    so that repeated submissions share a plan-cache signature (a ``map``
+    is keyed by its callable)."""
+    from repro_torch.core import arithmetic
+    return arithmetic.binary_op(env["price"], env["discount"], "mul")
+
+
+# Q1's shipdate cut; Q1s (a second plan of the serving mix) cuts earlier
+Q1_CUTS = {"Q1": 2400, "Q1s": 2000}
+
+
 def build_query(name, table, orders_table=None, part_keys=None,
                 query_cls=None):
     """The query ``name`` staged on ``table`` with ``query_cls`` (``Query``
     by default; ``PartitionedQuery`` for a partitioned table)."""
-    from repro_torch.core import arithmetic
     from repro_torch.core.plan import Query, col
 
     Query = query_cls or Query  # noqa: N806
 
-    def rev(env):
-        return arithmetic.binary_op(env["price"], env["discount"], "mul")
-
-    if name == "Q1":
+    if name in Q1_CUTS:
         return (Query(table)
-                .filter(col("shipdate") <= 2400)
+                .filter(col("shipdate") <= Q1_CUTS[name])
                 .groupby(["returnflag", "linestatus"],
                          {"sum_qty": ("sum", "quantity"),
                           "sum_price": ("sum", "price"),
@@ -386,8 +420,8 @@ def oracle(name, d, orders=None, part_keys=None):
     """The query's answer computed with numpy on the host (float64 sums).
     Group-by answers: {"keys": {name: int array}, "aggs": {...}} in
     lexicographic key order; scalar answers: {out: value}."""
-    if name == "Q1":
-        sel = d["shipdate"] <= 2400
+    if name in Q1_CUTS:
+        sel = d["shipdate"] <= Q1_CUTS[name]
         key = d["returnflag"] * 2 + d["linestatus"]
         gk, sums, cnt = _grouped(key, sel, {"q": d["quantity"], "p": d["price"],
                                             "d": d["discount"]}, 6)
@@ -2137,7 +2171,9 @@ def ordering_phase(dev, shared, runs, profile_dir=None):
     orders_table = shared["orders_table"]
     per_query = {}
     for name, src in RANKED_SOURCE.items():
-        data = shared["data"].pop(src)
+        # the serving phase reads SERVE_SOURCE's arrays and partitions
+        data = (shared["data"][src] if src == SERVE_SOURCE
+                else shared["data"].pop(src))
         want = ranked_oracle(name, data, shared["want"].get(src))
         del data
         table = shared["tables"].pop(src)
@@ -2174,7 +2210,8 @@ def ordering_phase(dev, shared, runs, profile_dir=None):
             rec["profile"] = profile_run(name, q, profile_dir)
         del q, table
 
-        pt = shared["packed"].pop(src)
+        pt = (shared["packed"][src] if src == SERVE_SOURCE
+              else shared["packed"].pop(src))
         streamed, stimes, moved = {}, {0: [], 1: [], 2: []}, []
         for depth in (0, 1, 2, 0, 2):
             before, tally = dict(_build.LAUNCHES), decoder_tally()
@@ -2243,6 +2280,194 @@ def ordering_phase(dev, shared, runs, profile_dir=None):
         del pt
         torch.cuda.empty_cache()
     return per_query
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the query server (core/serve.py) over the packed partitions
+# ---------------------------------------------------------------------------
+
+
+def build_served(name, table, orders_table, part_keys):
+    """A query of ``SERVE_MIX`` staged on the partitioned ``table``."""
+    from repro_torch.core.partition import PartitionedQuery
+    if name in RANKED_SOURCE:
+        return build_ranked(name, table, orders_table,
+                            query_cls=PartitionedQuery)
+    return build_query(name, table, orders_table, part_keys,
+                       query_cls=PartitionedQuery)
+
+
+def served_oracles(d, orders, part_keys):
+    """The mix's answers on ``d`` with numpy: every aggregate by
+    ``oracle``, R1 and Q3r by ``ranked_oracle``."""
+    want = {name: oracle(name, d, orders=orders, part_keys=part_keys)
+            for name in SERVE_MIX if name not in RANKED_SOURCE}
+    want["R1"] = ranked_oracle("R1", d)
+    want["Q3r"] = ranked_oracle("Q3r", d, want["Q3"])
+    return want
+
+
+def check_served(name, got, want):
+    (check_ranked if name in RANKED_SOURCE else check_answer)(name, got,
+                                                              want)
+
+
+def _server_counters(srv):
+    s = srv.stats()
+    return {"plan_hits": s["plan_cache"]["hits"],
+            "plan_misses": s["plan_cache"]["misses"],
+            "lru_hits": s["residency"]["hits"],
+            "lru_misses": s["residency"]["misses"],
+            "evictions": s["residency"]["evictions"],
+            "passes": s["scans"]["passes"],
+            "shared_queries": s["scans"]["shared_queries"],
+            "solo_queries": s["scans"]["solo_queries"]}
+
+
+def _served_round(srv, make, plan, label, solo, want):
+    """Submit ``plan`` (one list of mix names per client thread) to
+    ``srv``, wait for every answer, and hold each to its solo run (bit
+    for bit) and to the oracle. A server with a drain thread gets one
+    client thread a list; one without (``start=False``) gets the whole
+    plan queued first, then ``step()``s it batch by batch (its admission
+    is then deterministic). Returns the round's JSON record: latency,
+    counters moved, H2D bytes, launches, and the batch sizes of a
+    stepped round."""
+    import threading
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import _build
+
+    before = _server_counters(srv)
+    launches0 = dict(_build.LAUNCHES)
+    moved, done, errors, batches = [], [], [], []
+
+    def client(names):
+        try:
+            tickets = [(n, srv.submit(make(n))) for n in names]
+            if srv._worker is None:
+                while True:
+                    k = srv.step()
+                    if not k:
+                        break
+                    batches.append(k)
+            for n, t in tickets:
+                srv.result(t, timeout=900)
+                done.append((n, t))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    with telemetry.h2d_listener(lambda nb, tree: moved.append(nb)):
+        t0 = time.perf_counter()
+        if srv._worker is None:
+            client([n for names in plan for n in names])
+        else:
+            threads = [threading.Thread(target=client, args=(names,))
+                       for names in plan]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{label}: a served query failed: {errors[0]!r}")
+    if srv._fatal is not None or (srv._worker is not None
+                                  and not srv._worker.is_alive()):
+        raise AssertionError(f"{label}: the drain thread died: {srv._fatal!r}")
+    if len(done) != sum(len(p) for p in plan):
+        raise AssertionError(f"{label}: {len(done)} answers")
+    for n, t in done:
+        got = host_result(t.result)
+        if _bits(got) != _bits(solo[n]):
+            raise AssertionError(f"{label}: served {n} is not bit-identical "
+                                 "to its solo run")
+        check_served(n, got, want[n])
+    after = _server_counters(srv)
+    lat = np.array([t.latency_ms for _, t in done])
+    return {"round": label, "submissions": len(done), "wall_s": wall,
+            "qps": len(done) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "mean_ms": float(lat.mean()),
+            **{k: after[k] - before[k] for k in after},
+            "plan_hit_submissions": sum(t.plan_hit for _, t in done),
+            "resident_bytes": srv.lru.resident_bytes,
+            "budget_bytes": srv.budget_bytes,
+            "h2d_bytes": int(sum(moved)), "h2d_transfers": len(moved),
+            "launches": {k: _build.LAUNCHES[k] - launches0[k]
+                         for k in _build.KERNELS},
+            "batches": batches,
+            "answers": "bit-identical to solo runs, oracle ok"}
+
+
+def serving_phase(dev, shared, seed, card):
+    """The query server over the Q1-ordered packed partitions that the
+    ordering phase streamed R1 over, ORDERS resident. Server A holds the
+    whole table (``budget_bytes=nbytes()``, ``max_batch=8``):
+    ``SERVE_CLIENTS`` threads submit the mix twice in seeded orders, a
+    cold round and a warm one that must hit the plan cache on every
+    submission and move no H2D byte. Server B holds a third of the table:
+    the mix once, evicting, split into several passes. Every answer is
+    bit-identical to the query's solo ``run()`` at depth 2 (taken before
+    either server starts) and matches its numpy oracle. Launch counts are
+    zeroed after the solo runs, just before server A; the caller reads
+    them after this returns the records."""
+    from repro_torch.core.serve import QueryServer
+    from repro_torch.kernels import _build, dispatch
+
+    pt = shared["packed"].pop(SERVE_SOURCE)
+    orders_table, part_keys = shared["orders_table"], shared["part_keys"]
+    d = shared["data"].pop(SERVE_SOURCE)
+    want = served_oracles(d, shared["orders"], part_keys)
+    del d
+
+    def make(name):
+        return build_served(name, pt, orders_table, part_keys)
+
+    solo, solo_rec = {}, {}
+    with dispatch.overrides(prefetch_depth=2):
+        for name in SERVE_MIX:
+            before = dict(_build.LAUNCHES)
+            solo[name], ms = _timed_run(make(name))
+            check_served(name, solo[name], want[name])
+            solo_rec[name] = {"ms": ms, "launches": {
+                k: _build.LAUNCHES[k] - before[k] for k in _build.KERNELS}}
+    # the solo runs are the comparison: the served path's counts start here
+    _build.reset_launches()
+    print(json.dumps({"serving_solo_depth2": solo_rec, "partitions":
+                      len(pt.partitions), "table_bytes": pt.nbytes(),
+                      "oracle": "ok", "card": card}), flush=True)
+    rng = np.random.default_rng(seed)
+    records = []
+    with QueryServer(pt, budget_bytes=pt.nbytes(), max_batch=8) as srv:
+        for label in ("A_cold", "A_warm"):
+            plan = [[SERVE_MIX[i] for i in rng.permutation(len(SERVE_MIX))]
+                    for _ in range(SERVE_CLIENTS)]
+            rec = _served_round(srv, make, plan, label, solo, want)
+            records.append(rec)
+            print(json.dumps({**rec, "card": card}), flush=True)
+    warm = records[-1]
+    if warm["plan_misses"] or warm["plan_hit_submissions"] != \
+            warm["submissions"]:
+        raise AssertionError(f"A_warm: {warm['plan_misses']} plan-cache "
+                             "misses; every submission must hit")
+    if warm["h2d_bytes"] or warm["lru_misses"]:
+        raise AssertionError(f"A_warm: {warm['h2d_bytes']} H2D bytes, "
+                             f"{warm['lru_misses']} residency misses")
+    # the whole mix queued, then stepped: with the budget of server A it
+    # would be one batch (max_batch=8); a third of the table must split it
+    with QueryServer(pt, budget_bytes=pt.nbytes() // 3, max_batch=8,
+                     start=False) as srv:
+        plan = [[SERVE_MIX[i] for i in rng.permutation(len(SERVE_MIX))]]
+        rec = _served_round(srv, make, plan, "B_third", solo, want)
+    records.append(rec)
+    print(json.dumps({**rec, "card": card}), flush=True)
+    if rec["evictions"] == 0:
+        raise AssertionError("B_third: a third of the table evicted nothing")
+    if len(rec["batches"]) <= 1:
+        raise AssertionError("B_third: budget admission did not split the "
+                             "mix into several passes")
+    del pt
+    return records
 
 
 def main(argv=None) -> int:
@@ -2344,11 +2569,19 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the ordering path: "
                              f"{missing}")
+    served = serving_phase(dev, shared, args.seed, card)
+    serving = dict(_build.LAUNCHES)
+    shapes["serving"] = {k: dict(v) for k, v in _build.SHAPES.items()}
+    missing = [k for k in SERVE_KERNELS if serving[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the served path: "
+                             f"{missing}")
     print(json.dumps({"launches": {"resident": resident,
                                    "out_of_core": streamed,
-                                   "ordering": ordering},
+                                   "ordering": ordering,
+                                   "serving": serving},
                       "launch_shapes": shapes}), flush=True)
-    launches = {k: resident[k] + streamed[k] + ordering[k]
+    launches = {k: resident[k] + streamed[k] + ordering[k] + serving[k]
                 for k in _build.KERNELS}
     # the inputs the main path gave each kernel; no capture while timing
     largest = dict(_build.LARGEST)
@@ -2370,7 +2603,11 @@ def main(argv=None) -> int:
             "warm_ms_depth0": v["warm_ms_depth0"],
             "warm_ms_depth2": v["warm_ms_depth2"],
             "visited": v["visited"], "ranked_pruned": v["ranked_pruned"]}
-        for k, v in ranked.items()}}), flush=True)
+        for k, v in ranked.items()}, "serving": {
+        r["round"]: {k: r[k] for k in ("qps", "p50_ms", "p99_ms", "mean_ms",
+                                       "plan_hits", "lru_hits", "evictions",
+                                       "passes", "h2d_bytes")}
+        for r in served}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 columnar data, mirroring ``repro.core`` (DESIGN.md §2, §4).
 
 Layers ported so far (the resident query path, the out-of-core streamed
-path, and ordering on both):
+path, ordering on both, and the query server):
   encodings   — Plain / RLE / Index / Plain+Index / RLE+Index columns & masks
   primitives  — Table-1 parallel primitives (range_intersect, idx_in_rle, ...)
   logical     — AND / OR / NOT over MaskColumns (Tables 2-5)
@@ -21,6 +21,8 @@ path, and ordering on both):
   order       — ORDER BY / TOP-K / LIMIT on compressed columns: bounded,
                 entry and row-level ranking, the distributed top-k merge
                 (DESIGN.md §10)
+  serve       — QueryServer: device-residency LRU, plan cache, shared
+                scans, admission, deadlines and cancellation (DESIGN.md §13)
 """
 from repro_torch.core import (  # noqa: F401
     arithmetic,
@@ -34,6 +36,7 @@ from repro_torch.core import (  # noqa: F401
     partition,
     plan,
     primitives,
+    serve,
     stream,
     telemetry,
 )
@@ -60,6 +63,8 @@ from repro_torch.core.encodings import (  # noqa: F401
 from repro_torch.core.faults import (  # noqa: F401
     DeviceOOMError,
     FaultPlan,
+    QueryCancelled,
+    QueryDeadlineExceeded,
     TransientTransferError,
     ValidationError,
 )
@@ -69,4 +74,5 @@ from repro_torch.core.partition import (  # noqa: F401
     PartitionedTable,
 )
 from repro_torch.core.plan import Query, col  # noqa: F401
+from repro_torch.core.serve import QueryServer  # noqa: F401
 from repro_torch.core.table import Table  # noqa: F401

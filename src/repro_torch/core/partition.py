@@ -624,6 +624,24 @@ def base_masked_program(inner):
     return wrapped
 
 
+def ready_on_compute(put, device: torch.device):
+    """The tree of a transfer, safe to read on the current (compute)
+    stream. A ``Pending`` from ``_put_columns`` was copied on a copy
+    stream: the compute stream waits on its event, and every tensor is
+    marked used by the compute stream, so the caching allocator never
+    hands its blocks to a later copy while a kernel still reads them
+    (whoever drops the last reference: a retired partition, or the
+    serving layer's residency LRU evicting a tree a program reads)."""
+    if not isinstance(put, Pending):
+        return put
+    if put.event is not None:
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(put.event)
+        for t in tensor_leaves(put.value):
+            t.record_stream(cur)
+    return put.value
+
+
 def _to_host_after(value, device: torch.device) -> Pending:
     """A partial's tensors copied to host memory without a wait: on a CUDA
     device, ``non_blocking`` copies into pinned memory on the compute
@@ -849,16 +867,7 @@ class PartitionedQuery(Query):
             return pidx.get(id(p))
 
         def compute(part, put):
-            cols, ready = (put.value, put.event) if isinstance(put, Pending) \
-                else (put, None)
-            if ready is not None:
-                # the copies were issued on the copy stream: order the
-                # program after them, and keep the allocator from reusing
-                # their blocks until the compute stream is done with them
-                cur = torch.cuda.current_stream(dev)
-                cur.wait_event(ready)
-                for t in tensor_leaves(cols):
-                    t.record_stream(cur)
+            cols = ready_on_compute(put, dev)
             return _to_host_after(execute(cols, key_sets, part.rows), dev)
 
         if terminal is None:

@@ -1,7 +1,6 @@
 """Fault tolerance and integrity validation of the port (DESIGN.md §15).
 
-The twin of tests/test_faults.py (its serving half waits for the port of
-``serve.py``):
+The twin of tests/test_faults.py:
 
   1. ``FaultPlan`` units — the port's copy of ``faults`` schedules the same
      seeded coordinates as the reference and fires at exact (site,
@@ -13,20 +12,32 @@ The twin of tests/test_faults.py (its serving half waits for the port of
   3. real-engine recovery: a fault schedule on a partitioned query gives
      the clean run's answer bit for bit on the six encodings, and
      ``explain_analyze`` reports the retries;
-  4. ``Table.validate()`` / ``PartitionedTable.validate()``: clean tables
+  4. serving resilience: deadlines (while queued and at a partition
+     boundary), cancellation, ``result(timeout=)`` dequeuing, a poisoned
+     subscriber isolated, the LRU-evicting OOM fallback to solo passes,
+     ``close(drain=False)`` and ``recover()`` — each scenario run through
+     both packages' ``QueryServer``, with the same outcomes and counters;
+  5. ``Table.validate()`` / ``PartitionedTable.validate()``: clean tables
      pass, corrupted run lists, positions, sentinels, dictionary codes,
      domains and packed widths raise ``ValidationError``, as in the
      reference.
 """
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
 import torch
 
+from repro.core import compress as jc
 from repro.core import faults as jfaults
 from repro.core import stream as jstream
+from repro.core import telemetry as jtelemetry
+from repro.core.partition import PartitionedQuery as JPQ
+from repro.core.partition import PartitionedTable as JPT
+from repro.core.plan import col as jcol
+from repro.core.serve import QueryServer as JQueryServer
 from repro.kernels import dispatch as jdispatch
 from repro_torch.core import compress as tc
 from repro_torch.core import faults, stream, telemetry
@@ -40,11 +51,13 @@ from repro_torch.core.faults import (
 )
 from repro_torch.core.partition import PartitionedQuery, PartitionedTable
 from repro_torch.core.plan import col
+from repro_torch.core.serve import QueryServer
 from repro_torch.core.table import Table
 from repro_torch.kernels import dispatch
 
-from torch_twins import (CPU, SIX_ENCODINGS, assert_payload_same,
-                         result_payload, six_encoding_data)
+from torch_twins import (CPU, SIX_ENCODINGS, assert_payload_close,
+                         assert_payload_same, result_payload,
+                         six_encoding_data)
 
 CFG = tc.CompressionConfig(plain_threshold=1000)
 
@@ -287,7 +300,245 @@ def test_explain_analyze_surfaces_resilience(rng):
 
 
 # ---------------------------------------------------------------------------
-# 4. integrity validation
+# 4. serving resilience (each scenario through both packages)
+# ---------------------------------------------------------------------------
+
+SREF = types.SimpleNamespace(
+    name="repro", PT=JPT, PQ=JPQ, col=jcol, Server=JQueryServer,
+    faults=jfaults, telemetry=jtelemetry, dispatch=jdispatch,
+    cfg=jc.CompressionConfig(plain_threshold=1000), dev={})
+SPORT = types.SimpleNamespace(
+    name="repro_torch", PT=PartitionedTable, PQ=PartitionedQuery, col=col,
+    Server=QueryServer, faults=faults, telemetry=telemetry,
+    dispatch=dispatch, cfg=CFG, dev={"device": CPU})
+
+
+@pytest.fixture
+def servers():
+    """``open(P, table, **kw)`` builds package ``P``'s server; every one
+    is closed when the test ends."""
+    opened = []
+
+    def open_(P, pt, **kw):
+        srv = P.Server(pt, **kw)
+        opened.append(srv)
+        return srv
+
+    yield open_
+    for srv in opened:
+        srv.close(drain=False)
+
+
+def _serve_table(P, n=6_000, parts=4):
+    rng = np.random.default_rng(0)
+    data = {
+        "k": np.sort(rng.integers(0, 16, n)).astype(np.int32),
+        "v": rng.integers(0, 2000, n).astype(np.int32),
+    }
+    return P.PT.from_arrays(data, cfg=P.cfg, num_partitions=parts, **P.dev)
+
+
+def _agg_q(P, pt, lit=100):
+    return (P.PQ(pt).filter(P.col("v") > lit)
+            .aggregate({"s": ("sum", "v"), "c": ("count", None)}))
+
+
+_OUTCOME_KEYS = ("completed", "errors", "timeouts", "cancelled", "expired")
+
+
+def _outcome(srv, tickets=()):
+    """What a scenario leaves behind: the server's outcome counters and
+    each ticket's error class (None when it was answered)."""
+    s = srv.stats()
+    return {"stats": {k: s[k] for k in _OUTCOME_KEYS},
+            "errors": [None if t.error is None else type(t.error).__name__
+                       for t in tickets]}
+
+
+def _serve_both(scenario):
+    """``scenario`` through the reference, then the port: the two
+    observation dicts must be equal (answers within rtol 1e-4)."""
+    want = scenario(SREF)
+    got = scenario(SPORT)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if key.startswith("answer"):
+            assert_payload_close(w, got[key], key)
+        else:
+            assert got[key] == w, (key, got[key], w)
+    return got
+
+
+def _scalar_payload(r):
+    return {k: np.asarray(r[k]) for k in r}
+
+
+def test_deadline_expired_while_queued(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        srv = servers(P, pt, start=False)
+        t = srv.submit(_agg_q(P, pt), deadline_s=0.0)
+        time.sleep(0.005)
+        assert srv.step() == 0  # reaped at batch formation, never run
+        with pytest.raises(P.faults.QueryDeadlineExceeded):
+            srv.result(t)
+        return _outcome(srv, [t])
+
+    got = _serve_both(scenario)
+    assert got["stats"]["expired"] == 1 and got["stats"]["completed"] == 0
+
+
+def test_deadline_expires_at_partition_boundary(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        srv = servers(P, pt, start=False)
+        # warm the plan cache so building cannot eat the deadline budget
+        warm = srv.submit(_agg_q(P, pt))
+        srv.step()
+        assert srv.result(warm, timeout=60)["c"] > 0
+        t = srv.submit(_agg_q(P, pt), deadline_s=0.25)
+        # 600 ms of injected latency in front of partition 1's copy: the
+        # deadline check at the NEXT partition boundary must fire (the
+        # LRU holds every partition, so the copy never happens: the
+        # latency probe still fires at the transfer site)
+        with P.faults.FaultPlan().latency(part=1, ms=600):
+            srv.step()
+        with pytest.raises(P.faults.QueryDeadlineExceeded):
+            srv.result(t)
+        assert t.stats is None  # failed tickets carry no stats dict
+        return _outcome(srv, [warm, t])
+
+    got = _serve_both(scenario)
+    assert got["stats"]["expired"] == 1
+
+
+def test_cancel_queued_and_finished(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        srv = servers(P, pt, start=False)
+        t = srv.submit(_agg_q(P, pt))
+        assert srv.cancel(t) is True
+        with pytest.raises(P.faults.QueryCancelled):
+            srv.result(t)
+        assert srv.step() == 0  # dequeued: nothing left to run
+        t2 = srv.submit(_agg_q(P, pt))
+        srv.step()
+        answer = _scalar_payload(srv.result(t2, timeout=60))
+        assert srv.cancel(t2) is False  # already finished: result stands
+        return {**_outcome(srv, [t, t2]), "answer": answer}
+
+    got = _serve_both(scenario)
+    assert got["stats"]["cancelled"] == 1 and got["stats"]["completed"] == 1
+
+
+def test_result_timeout_dequeues_ticket(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        srv = servers(P, pt, start=False)  # no drain: the ticket waits
+        t = srv.submit(_agg_q(P, pt))
+        with pytest.raises(TimeoutError):
+            srv.result(t, timeout=0.01)
+        assert t.done.is_set()
+        with pytest.raises(P.faults.QueryCancelled):
+            srv.result(t)
+        assert srv.step() == 0
+        return _outcome(srv, [t])
+
+    got = _serve_both(scenario)
+    assert got["stats"]["timeouts"] == 1 and got["stats"]["cancelled"] == 1
+
+
+def test_poisoned_subscriber_is_isolated(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        expected = _scalar_payload(_agg_q(P, pt).run())
+        srv = servers(P, pt, start=False)
+        bad = srv.submit(_agg_q(P, pt))
+        good = srv.submit(_agg_q(P, pt))
+        # "program" faults fire per (partition, subscriber): attempt 0 on
+        # partition 0 is the FIRST subscriber's program — the batch head
+        with P.faults.FaultPlan().transient(part=0, site="program"):
+            assert srv.step() == 2  # both admitted to one shared pass
+        with pytest.raises(P.faults.TransientTransferError):
+            srv.result(bad)
+        answer = _scalar_payload(srv.result(good))
+        assert set(answer) == set(expected)
+        for k in expected:
+            np.testing.assert_array_equal(answer[k], expected[k])
+        assert good.shared_with == 1
+        return {**_outcome(srv, [bad, good]), "answer": answer,
+                "shared_with": good.shared_with}
+
+    got = _serve_both(scenario)
+    assert got["stats"]["errors"] == 1 and got["stats"]["completed"] == 1
+
+
+def test_shared_scan_oom_falls_back_to_solo_passes(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        expected = [_scalar_payload(_agg_q(P, pt, lit).run())
+                    for lit in (100, 500)]
+        srv = servers(P, pt, start=False)
+        oom0 = P.telemetry.registry().counter("fault.serve_oom")
+        tickets = [srv.submit(_agg_q(P, pt, lit)) for lit in (100, 500)]
+        plan = P.faults.FaultPlan()
+        for attempt in range(3):  # exhaust depth 2 -> 1 -> 0 in the pass
+            plan.oom(part=1, attempt=attempt, site="compute")
+        with P.dispatch.overrides(prefetch_depth=2, transfer_backoff_ms=0.0):
+            with plan:
+                srv.step()
+        answers = [_scalar_payload(srv.result(t)) for t in tickets]
+        for a, e in zip(answers, expected):
+            for k in e:
+                np.testing.assert_array_equal(a[k], e[k])
+        fallbacks = srv.stats()["oom_fallbacks"]
+        assert fallbacks >= 1
+        assert P.telemetry.registry().counter("fault.serve_oom") > oom0
+        return {**_outcome(srv, tickets), "oom_fallbacks": fallbacks,
+                "answer0": answers[0], "answer1": answers[1]}
+
+    _serve_both(scenario)
+
+
+def test_close_drain_false_cancels_queue(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        srv = servers(P, pt, start=False)
+        tickets = [srv.submit(_agg_q(P, pt)) for _ in range(3)]
+        srv.close(drain=False)
+        for t in tickets:
+            with pytest.raises(P.faults.QueryCancelled, match="drain=False"):
+                srv.result(t)
+        with pytest.raises(RuntimeError, match="closed"):
+            srv.submit(_agg_q(P, pt))
+        return _outcome(srv, tickets)
+
+    got = _serve_both(scenario)
+    assert got["stats"]["cancelled"] == 3
+
+
+def test_recover_clears_fatal_state(servers):
+    def scenario(P):
+        pt = _serve_table(P)
+        srv = servers(P, pt, start=False)
+        srv._fatal = RuntimeError("plan-cache contract violated (simulated)")
+        with pytest.raises(RuntimeError, match="simulated"):
+            srv.submit(_agg_q(P, pt))
+        srv.recover()
+        t = srv.submit(_agg_q(P, pt))
+        srv.step()
+        answer = _scalar_payload(srv.result(t, timeout=60))
+        assert answer["c"] > 0
+        srv.close()
+        with pytest.raises(RuntimeError, match="closed"):
+            srv.recover()
+        return {**_outcome(srv, [t]), "answer": answer}
+
+    _serve_both(scenario)
+
+
+# ---------------------------------------------------------------------------
+# 5. integrity validation
 # ---------------------------------------------------------------------------
 
 

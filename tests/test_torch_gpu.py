@@ -670,3 +670,148 @@ def test_gpu_bucketize_count_kernel_window_edge_and_grid(cuda_device):
         for kw in ({}, {"max_blocks": 1}, {"max_blocks": 5},
                    {"max_splitters": 64}, {"max_splitters": 1 << 14}):
             assert torch.equal(kb.bucketize_count_kernel(bb, qq, **kw), want)
+
+
+# ---------------------------------------------------------------------------
+# The query server (core/serve.py) on the card
+# ---------------------------------------------------------------------------
+
+
+def _served_table(dev, n=300_000, parts_rows=1 << 16):
+    """The serving mix's inputs at a small size: a Q1-ordered packed
+    LINEITEM on ``dev`` (pinned host partitions), ORDERS, part keys."""
+    from repro_torch.core.partition import PartitionedTable
+    rng = np.random.default_rng(2)
+    part_keys = np.unique(rng.integers(0, n // 30, n // 600)).astype(np.int32)
+    orders = chip_smoke.make_orders(rng, n // 4)
+    data = chip_smoke.make_lineitem(rng, n, order=chip_smoke.SORT_ORDERS["Q1"])
+    cfg = compress.CompressionConfig(plain_threshold=1_000)
+    pt = PartitionedTable.from_arrays(data, cfg=cfg, partition_rows=parts_rows,
+                                      pack=True, device=dev)
+    ot = Table.from_arrays(orders, cfg=cfg, device=dev)
+    return pt, ot, part_keys
+
+
+def _serve_threads(srv, make, plan):
+    """Submit each list of ``plan`` from its own thread; the answers as
+    (name, host result), in completion order."""
+    import threading
+    done, errors = [], []
+
+    def client(names):
+        try:
+            tickets = [(n, srv.submit(make(n))) for n in names]
+            for n, t in tickets:
+                done.append((n, chip_smoke.host_result(
+                    srv.result(t, timeout=300))))
+        except Exception as exc:  # noqa: BLE001 - asserted below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(p,)) for p in plan]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    return done
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 2])
+def test_gpu_server_threads_bit_identical_to_solo(cuda_device, depth):
+    """32 submissions of the serving mix from 4 threads: every answer is
+    bit-identical to the query's solo run, and kernels are launched."""
+    from repro_torch.core.serve import QueryServer
+    from repro_torch.kernels import dispatch
+    pt, ot, keys = _served_table(cuda_device)
+
+    def make(name):
+        return chip_smoke.build_served(name, pt, ot, keys)
+
+    mix = chip_smoke.SERVE_MIX
+    with dispatch.overrides(prefetch_depth=depth):
+        solo = {n: chip_smoke.host_result(make(n).run()) for n in mix}
+        plan = [[mix[(t + i) % len(mix)] for i in range(8)] for t in range(4)]
+        before = sum(_build.LAUNCHES.values())
+        with QueryServer(pt, max_batch=8) as srv:
+            done = _serve_threads(srv, make, plan)
+            stats = srv.stats()
+    assert sum(_build.LAUNCHES.values()) > before
+    assert len(done) == 32 and stats["completed"] == 32
+    assert stats["errors"] == 0
+    for n, got in done:
+        assert chip_smoke._bits(got) == chip_smoke._bits(solo[n]), n
+
+
+@pytest.mark.gpu
+def test_gpu_server_evicting_budget_stays_exact(cuda_device):
+    """A budget of one partition: every fetch evicts the tree a program
+    may still be reading (the ring runs ahead), and the answers stay
+    bit-identical to solo runs."""
+    from repro_torch.core.serve import QueryServer
+    from repro_torch.kernels import dispatch
+    pt, ot, keys = _served_table(cuda_device)
+
+    def make(name):
+        return chip_smoke.build_served(name, pt, ot, keys)
+
+    mix = chip_smoke.SERVE_MIX
+    with dispatch.overrides(prefetch_depth=2):
+        solo = {n: chip_smoke.host_result(make(n).run()) for n in mix}
+        with pytest.warns(UserWarning):  # the ring's depth clamp
+            with QueryServer(pt, budget_bytes=pt.max_partition_nbytes(),
+                             max_batch=8) as srv:
+                done = _serve_threads(srv, make, [list(mix), list(mix)])
+                evictions = srv.lru.evictions
+                resident = srv.lru.resident_bytes
+    assert evictions > 0 and resident <= pt.max_partition_nbytes()
+    for n, got in done:
+        assert chip_smoke._bits(got) == chip_smoke._bits(solo[n]), n
+
+
+@pytest.mark.gpu
+def test_gpu_shared_scan_folds_after_each_d2h_event(cuda_device,
+                                                    monkeypatch):
+    """8 subscribers over 8 partitions in one shared pass, each program
+    held back on the device (a sleep kernel before it), so every partial's
+    device-to-host copy lands late: the fold must still read each
+    partial's final values (the pass waits on the event after the last
+    copy), giving the solo runs' answers bit for bit."""
+    from repro_torch.core import serve
+    from repro_torch.core.partition import PartitionedQuery
+    from repro_torch.core.plan import col
+    from repro_torch.kernels import dispatch
+    pt, _, _ = _served_table(cuda_device, n=8 << 16)
+    assert len(pt.partitions) == 8
+    cuts = [300 * (i + 1) for i in range(8)]
+
+    def make(cut):
+        return (PartitionedQuery(pt).filter(col("shipdate") <= cut)
+                .aggregate({"s": ("sum", "price"), "q": ("sum", "quantity"),
+                            "c": ("count", None)}))
+
+    solo = {c: chip_smoke.host_result(make(c).run()) for c in cuts}
+    real = serve.base_masked_program
+
+    def slowed(inner):
+        program = real(inner)
+
+        def late(*args):
+            torch.cuda._sleep(20_000_000)  # about 10 ms on the device
+            return program(*args)
+
+        return late
+
+    monkeypatch.setattr(serve, "base_masked_program", slowed)
+    for depth in (0, 2):
+        with dispatch.overrides(prefetch_depth=depth):
+            srv = serve.QueryServer(pt, start=False, max_batch=8)
+            try:
+                tickets = {c: srv.submit(make(c)) for c in cuts}
+                assert srv.step() == 8
+                assert srv.stats()["scans"]["passes"] == 1
+                for c, t in tickets.items():
+                    got = chip_smoke.host_result(srv.result(t, timeout=0))
+                    assert chip_smoke._bits(got) == chip_smoke._bits(solo[c])
+            finally:
+                srv.close()

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # TPC-H scale factor 10, ~60M LINEITEM rows
     python3 chip_smoke.py --sf 0.01  # a quick rehearsal at a small scale
+    python3 chip_smoke.py --models   # only the model phase (step 8)
 
 What it does, in order, failing (non-zero exit, no result line) on the
 first error:
@@ -122,7 +123,23 @@ first error:
    beside ``torch.searchsorted`` at Q17's semi-join shape and at Q3's
    shape with random queries. The two RLE decoders add their device time
    a call (``device_ms``, ``torch.profiler``).
-8. A ``launches`` line (per phase: launches, and a tally by shape class,
+8. Model phase (the LLM serving path, ``repro_torch.models`` and
+   ``launch/serve_model.py``; no kernel of its own: the reference computes
+   it in plain ``jnp``). The query phases' tables are released first.
+   qwen2-1.5b and granite-moe-3b-a800m at full width in bf16, weights
+   drawn on the card from ``--seed``: two runs each of ``serve_model``'s
+   loop (batch 4, a 32-token seeded prompt prefilled token by token, 16
+   greedy tokens) that must give the same ids and no NaN, then
+   teacher-forced ``decode_step`` logits against ``forward`` on the
+   prompts' first 16 tokens, relative max error below 2e-2 (capacity
+   factor 16, as ``tests/test_models.py``). One JSON line a model:
+   prefill and decode tokens/s of each run, the peak device memory of
+   the serving runs (``torch.cuda.max_memory_allocated``), the error,
+   and one decode step's profile (device busy ms, idle share, launches).
+   Then every ported smoke arch (dense, moe, audio, vlm) in float32 on
+   the card against the CPU with the same weights: forward and
+   teacher-forced decode logits within a relative max error of 1e-3.
+9. A ``launches`` line (per phase: launches, and a tally by shape class,
    ``_build.SHAPES``), a ``{"kernels": [...]}`` summary line, then as the
    last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -132,7 +149,8 @@ seeded inputs (and both RLE decoders at a short-run shape too: about 2^21
 runs of 1-4 rows with gaps over 2^23 rows; ``unpack_kernel`` and
 ``bucketize_packed_kernel`` also at the streamed path's smaller launch
 classes, the latter on Q17's sorted, code-0 padded run values and on
-random ones), per launch, back to back and on the device; ``--queries Q3,Q17`` runs only those queries, resident
+random ones), per launch, back to back and on the device; ``--models``
+runs only the model phase; ``--queries Q3,Q17`` runs only those queries, resident
 and streamed (with ``--profile``, their profiles); ``--src DIR`` imports
 ``repro_torch`` from another checkout's ``src`` (its kernels build
 there), so one call can time a parent tree and this one in turns.
@@ -191,6 +209,12 @@ SERVE_MIX = ("Q1", "Q1s", "Q6", "Q17", "Q3", "Q3r", "R1")
 SERVE_SOURCE = "Q1"
 SERVE_KERNELS = ("unpack_kernel", "segment_sum_kernel", "topk_kernel")
 SERVE_CLIENTS = 4
+# the model phase: full-width archs (bf16), serving shape, and bounds
+MODEL_FULL = ("qwen2_1p5b", "granite_moe_3b_a800m")
+MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 32, 16
+MODEL_PREFIX = 16  # teacher-forced decode against forward on this prefix
+MODEL_DECODE_BOUND = 2e-2  # tests/test_models.py::test_decode_matches_forward
+MODEL_SMOKE_RTOL = 1e-3  # float32 smoke archs, card against CPU
 # bucketize_count_kernel's edge cases: boundary counts (just above the
 # shared-memory route, Q17's semi-join, Q3's join probe) and query patterns
 COUNT_NB = (58_113, 97_532, 1 << 23)
@@ -1867,10 +1891,10 @@ def kernel_bench(dev):
 # ---------------------------------------------------------------------------
 
 
-def profile_run(name, q, out_dir):
-    """One more warm run under ``torch.profiler``: writes the op table to
-    ``out_dir/<name>.txt`` and returns the device busy time, its share of
-    the wall time, and the ops that launched the most device time."""
+def profile_call(fn):
+    """``fn()`` once under ``torch.profiler``: the events, and the device
+    busy time, its share of the wall time, the kernels launched and the
+    ops that launched the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1879,22 +1903,31 @@ def profile_run(name, q, out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        q.run()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"{name}.txt").write_text(events.table(
-        sort_by="self_device_time_total", row_limit=40))
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
     ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in events
                   if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda kv: -kv[1])
-    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
-            "top_ops_device_ms": ops[:6]}
+    return events, {
+        "profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_ops_device_ms": ops[:6]}
+
+
+def profile_run(name, q, out_dir):
+    """One more warm run of ``q`` under ``torch.profiler`` (``profile_call``);
+    writes the op table to ``out_dir/<name>.txt``."""
+    events, rec = profile_call(q.run)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{name}.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=40))
+    return rec
 
 
 def query_phase(sf, dev, runs, profile_dir=None,
@@ -2470,6 +2503,189 @@ def serving_phase(dev, shared, seed, card):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Model phase: the LLM serving path (repro_torch.models / launch.serve_model)
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float32 on the host."""
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _model_inputs(cfg, rng, B, S):
+    """A seeded batch of S positions: token ids, or frame embeddings for
+    the audio family (vlm: tokens after its image-patch prefix)."""
+    import torch
+    if cfg.family == "audio":
+        return {"embeds": torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))}
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    if cfg.family == "vlm":
+        ni = cfg.n_image_tokens
+        batch["tokens"] = batch["tokens"][:, ni:]
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, ni, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def teacher_forced(params, cfg, steps, device):
+    """Decode logits [B, S, ...] of S teacher-forced ``decode_step`` calls
+    (``steps``: the per-position input, ``tokens`` or ``embeds``)."""
+    import torch
+    from repro_torch.models import model as M
+    key = "embeds" if cfg.family == "audio" else "tokens"
+    B, S = steps[key].shape[:2]
+    cache = M.init_cache(cfg, B, S, device)
+    outs = []
+    with torch.inference_mode():
+        for i in range(S):
+            lg, cache = M.decode_step(params, cfg, cache,
+                                      {key: steps[key][:, i:i + 1]}, i)
+            outs.append(lg[:, -1])
+    return torch.stack(outs, dim=1)
+
+
+def model_full(arch, dev, seed, card):
+    """One full-width attention-family model, bf16 on the card, random
+    weights from ``seed``: two serving runs of ``launch.serve_model``'s
+    loop (``MODEL_BATCH`` prompts of ``MODEL_PROMPT`` seeded tokens, a
+    token-by-token prefill, ``MODEL_GEN`` greedy tokens) that must give
+    the same ids and no NaN, then teacher-forced ``decode_step`` logits
+    against ``forward`` on the prompts' first ``MODEL_PREFIX`` tokens,
+    relative max error below ``MODEL_DECODE_BOUND`` (with capacity factor
+    16, as ``tests/test_models.py`` does: at the default factor forward
+    drops tokens over an expert's capacity and one-token decode never
+    does). Peak device memory is read after the weights are drawn; one
+    more decode step runs under ``torch.profiler`` (device busy time, idle
+    share, kernel launches), beside the time to read the weights once."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve_model import generate
+    from repro_torch.models import model as M
+    cfg = configs.get_config(arch)
+    B, P, G = MODEL_BATCH, MODEL_PROMPT, MODEL_GEN
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    runs = []
+    for _ in range(2):
+        ids, logits, t = generate(params, cfg, M.init_cache(cfg, B, P + G, dev),
+                                  prompt, G)
+        if torch.isnan(logits.float()).any():
+            raise AssertionError(f"{arch}: NaN in the decode logits")
+        runs.append((ids, t))
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        raise AssertionError(f"{arch}: two serving runs gave other ids")
+    serve_peak = torch.cuda.max_memory_allocated()
+    # one warm decode step (its work does not depend on the position: it
+    # attends over the whole cache under a mask)
+    cache = M.init_cache(cfg, B, P + G, dev)
+    step_in = {"tokens": torch.from_numpy(prompt[:, :1]).to(dev)}
+    with torch.inference_mode():
+        _, step = profile_call(
+            lambda: M.decode_step(params, cfg, cache, step_in, 0))
+    del cache
+    check = dataclasses.replace(cfg, capacity_factor=16.0)
+    prefix = torch.from_numpy(prompt[:, :MODEL_PREFIX]).to(dev)
+    with torch.inference_mode():
+        fwd, _ = M.forward(params, check, {"tokens": prefix})
+    if torch.isnan(fwd.float()).any():
+        raise AssertionError(f"{arch}: NaN in the forward logits")
+    rel = rel_err(teacher_forced(params, check, {"tokens": prefix}, dev), fwd)
+    if not rel < MODEL_DECODE_BOUND:
+        raise AssertionError(f"{arch}: decode against forward rel err {rel} "
+                             f">= {MODEL_DECODE_BOUND}")
+    rec = {"model": cfg.name, "family": cfg.family, "dtype": "bfloat16",
+           "params": M.param_count(params),
+           "active_params": M.active_param_count(cfg, params),
+           "weight_bytes": weight_bytes, "batch": B, "prompt": P, "gen": G,
+           "init_s": init_s,
+           "prefill_tok_s": [B * P / t["prefill_s"] for _, t in runs],
+           "decode_tok_s": [B * G / t["decode_s"] for _, t in runs],
+           "prefill_s": [t["prefill_s"] for _, t in runs],
+           "decode_s": [t["decode_s"] for _, t in runs],
+           "max_memory_allocated_MiB": serve_peak / 2**20,
+           "held_before_serving_MiB": held / 2**20,
+           "decode_step_profile": step,
+           "weights_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "decode_vs_forward_rel_err": rel,
+           "ids_first_seq": runs[0][0][0].tolist(),
+           "ids_same_in_two_runs": True, "card": card}
+    print(json.dumps(rec), flush=True)
+    del params, fwd
+    torch.cuda.empty_cache()
+    return rec
+
+
+def smoke_model_check(arch, dev, seed=0):
+    """A smoke-width arch in float32 on ``dev`` against the CPU with the
+    same weights (drawn on the CPU, carried by ``models.convert``):
+    forward logits and a teacher-forced decode of every position, relative
+    max error each. The caller holds them below ``MODEL_SMOKE_RTOL``."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype=torch.float32)
+    cpu = torch.device("cpu")
+    p_cpu = M.init_params(cfg, torch.Generator().manual_seed(seed), cpu)
+    p_dev = params_from_numpy(cfg, params_to_numpy(p_cpu), dev)
+    rng = np.random.default_rng(seed)
+    batch = _model_inputs(cfg, rng, 2, 16)
+    key = "embeds" if cfg.family == "audio" else "tokens"
+    steps = {key: batch[key]} if cfg.family != "vlm" else \
+        {key: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                               .astype(np.int32))}
+    out = {"arch": arch}
+    with torch.inference_mode():
+        want, _ = M.forward(p_cpu, cfg, batch)
+        got, _ = M.forward(p_dev, cfg, {k: v.to(dev) for k, v in batch.items()})
+    out["forward_rel"] = rel_err(got, want)
+    out["decode_rel"] = rel_err(
+        teacher_forced(p_dev, cfg, {key: steps[key].to(dev)}, dev),
+        teacher_forced(p_cpu, cfg, steps, cpu))
+    return out
+
+
+def model_phase(dev, seed, card):
+    """The LLM serving path: ``MODEL_FULL`` at full width, bf16, then every
+    ported smoke arch in float32 on the card against the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    full = [model_full(arch, dev, seed, card) for arch in MODEL_FULL]
+    smoke = []
+    for arch in configs.ARCHS:
+        if configs.get_smoke_config(arch).family not in M.ATTENTION_FAMILIES:
+            continue
+        rec = smoke_model_check(arch, dev, seed)
+        smoke.append(rec)
+        if not max(rec["forward_rel"], rec["decode_rel"]) < MODEL_SMOKE_RTOL:
+            raise AssertionError(f"{arch} smoke: card against CPU {rec}")
+    print(json.dumps({"model_smoke_card_vs_cpu": smoke,
+                      "rtol": MODEL_SMOKE_RTOL, "card": card,
+                      "model_phase_s": time.perf_counter() - t0}),
+          flush=True)
+    return full
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sf", type=float, default=10.0,
@@ -2490,6 +2706,9 @@ def main(argv=None) -> int:
     parser.add_argument("--kernel-bench", action="store_true",
                         help="only time every kernel at the main path's "
                         "shapes on seeded inputs, and stop")
+    parser.add_argument("--models", action="store_true",
+                        help="only run the model phase (the LLM serving "
+                        "path, full width and smoke archs), and stop")
     parser.add_argument("--src", type=Path, default=None,
                         help="import repro_torch from this src directory "
                         "(another checkout's: its kernels build there)")
@@ -2524,6 +2743,10 @@ def main(argv=None) -> int:
     print(f"repro_torch from {Path(repro_torch.__file__).parent}", flush=True)
     if args.kernel_bench:
         kernel_bench(dev)
+        print(card, flush=True)
+        return 0
+    if args.models:
+        model_phase(dev, args.seed, card)
         print(card, flush=True)
         return 0
     if args.queries:
@@ -2587,6 +2810,12 @@ def main(argv=None) -> int:
     largest = dict(_build.LARGEST)
     _build.capture(False)
     rows = kernel_timing(launches, largest, shared["part_keys"])
+    # the query phases' tables and captured inputs go before the models
+    del largest
+    shared.clear()
+    _build.LARGEST.clear()
+    torch.cuda.empty_cache()
+    models = model_phase(dev, args.seed, card)
     print(json.dumps({"card": card, "queries": {
         k: {"warm_median_ms": v["warm_median_ms"], "ingest_s": v["ingest_s"]}
         for k, v in per_query.items()}, "out_of_core": {
@@ -2607,7 +2836,11 @@ def main(argv=None) -> int:
         r["round"]: {k: r[k] for k in ("qps", "p50_ms", "p99_ms", "mean_ms",
                                        "plan_hits", "lru_hits", "evictions",
                                        "passes", "h2d_bytes")}
-        for r in served}}), flush=True)
+        for r in served}, "models": {
+        r["model"]: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
+                                       "max_memory_allocated_MiB",
+                                       "decode_vs_forward_rel_err")}
+        for r in models}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

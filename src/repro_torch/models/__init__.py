@@ -1,0 +1,20 @@
+"""Model zoo of the port: the attention families (dense GQA, MoE, audio,
+VLM backbones) of the reference's ``repro.models``, in PyTorch.
+
+Public API (the reference's names):
+  ModelConfig             — architecture hyperparameters (configs/ builds these)
+  init_params             — parameters (a ``ParamTree`` of stacked layer leaves)
+  forward                 — full-sequence forward (prefill)
+  loss_fn                 — causal-LM loss (+ MoE aux losses), forward only
+  init_cache, decode_step — single-token decode with a KV cache, in place
+``convert.params_from_numpy`` loads the reference's parameter tree.
+"""
+from repro_torch.models.model import (  # noqa: F401
+    ModelConfig,
+    ParamTree,
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    loss_fn,
+)

@@ -17,13 +17,15 @@ CUDA against the CPU's and a numpy oracle (NaN last, ties in row order),
 the TPC-H-shaped queries and the ranked queries of ``chip_smoke.py`` are
 held against the same queries on CPU tensors and the numpy oracle, and
 the streamed partitioned path (pinned partitions, copy stream, events)
-against its CPU run.
+against its CPU run, and each ported smoke model (float32) against its
+CPU run on the same weights.
 """
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from repro_torch import configs as model_configs
 from repro_torch.core import compress
 from repro_torch.core.table import Table
 from repro_torch.kernels import _build, ref
@@ -31,6 +33,7 @@ from repro_torch.kernels import bucketize as kb
 from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 from repro_torch.kernels import unpack as ku
+from repro_torch.models.model import ATTENTION_FAMILIES
 
 from torch_twins import (BUCKETIZE_CASES, RLE_CASES, RLE_DRAWS,  # noqa: F401
                          TOPK_CASES, bucketize_cases, cuda_device,
@@ -815,3 +818,52 @@ def test_gpu_shared_scan_folds_after_each_d2h_event(cuda_device,
                     assert chip_smoke._bits(got) == chip_smoke._bits(solo[c])
             finally:
                 srv.close()
+
+
+SMOKE_MODELS = [a for a in model_configs.ARCHS
+                if model_configs.get_smoke_config(a).family
+                in ATTENTION_FAMILIES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SMOKE_MODELS)
+def test_gpu_smoke_model_matches_cpu(cuda_device, arch):
+    """Each ported smoke arch in float32 on the card against the CPU with
+    the same weights: forward and teacher-forced decode logits within
+    ``chip_smoke.MODEL_SMOKE_RTOL`` (relative max error), as the model
+    phase of ``chip_smoke.py`` holds them."""
+    rec = chip_smoke.smoke_model_check(arch, cuda_device)
+    assert rec["forward_rel"] < chip_smoke.MODEL_SMOKE_RTOL, rec
+    assert rec["decode_rel"] < chip_smoke.MODEL_SMOKE_RTOL, rec
+
+
+@pytest.mark.gpu
+def test_gpu_rmsnorm_and_router_are_batch_invariant(cuda_device):
+    """A token's RMSNorm output and MoE router logits do not depend on how
+    many tokens one call holds (float64 accumulation rounded to float32):
+    at granite's width a float32 row mean on the card differs in some rows
+    between 16 tokens at once and one at a time, and that difference flips
+    bfloat16 outputs and MoE routing between prefill and decode."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(4, 16, 1536, generator=g, device=cuda_device) * 3
+    scale = {"scale": torch.randn(1536, generator=g, device=cuda_device)
+             .bfloat16()}
+    router = {"router": torch.randn(1536, 40, generator=g,
+                                    device=cuda_device) / 40,
+              "w_gate": torch.zeros(40, 1, 1, device=cuda_device)}
+    for dtype in (torch.bfloat16, torch.float32):
+        xs = x.to(dtype)
+        whole = L.rmsnorm(scale, xs)
+        split = torch.cat([L.rmsnorm(scale, xs[:, t:t + 1])
+                           for t in range(16)], dim=1)
+        assert torch.equal(whole, split)
+        r16 = L.moe_route(router, whole, 8, 16.0)
+        r1 = [L.moe_route(router, whole[:, t:t + 1], 8, 16.0)
+              for t in range(16)]
+        assert torch.equal(r16["expert"].reshape(4, 16, 8),
+                           torch.cat([r["expert"].reshape(4, 1, 8)
+                                      for r in r1], dim=1))
+        assert torch.equal(r16["gate"].reshape(4, 16, 8),
+                           torch.cat([r["gate"].reshape(4, 1, 8)
+                                      for r in r1], dim=1))

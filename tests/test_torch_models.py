@@ -1,0 +1,444 @@
+"""Twins of ``repro.models`` in ``repro_torch.models`` on the CPU.
+
+The same seeded numpy inputs go through the reference's layers and models
+(JAX on the CPU) and the port's, with the reference's parameters carried
+across by ``convert.params_from_numpy``. Tolerances:
+  * layers in float32: ``assert_allclose`` at rtol 1e-5 (attention, MLP,
+    RoPE: atol 1e-5 on values of order 1); RMSNorm in bfloat16 within one
+    bfloat16 ulp (rtol 2^-7);
+  * ``moe``: expert ids, ranks, keep mask and slots equal; y within rtol
+    1e-5; the aux loss within 1e-6;
+  * ``forward`` / ``decode_step`` of each ported smoke arch: max |delta| /
+    max |logit| below 1e-4 in float32 and 2e-2 in bfloat16; the KV caches
+    after decode within the same bound.
+The whole-model reference is compiled with XLA's excess precision off
+(``compiler_options={"xla_allow_excess_precision": False}``): its code as
+written, each op rounding where the code casts. With the default (on),
+XLA keeps float32 inside a fusion and skips, among others, the bfloat16
+rounding of ``rmsnorm``'s output before the router's float32 product,
+which flips MoE routing decisions: the reference's own jitted forward of
+the bfloat16 granite smoke model differs from its op-by-op evaluation
+(``jax.disable_jit()``) by 0.21 of the largest logit, and by 0.0 with the
+flag off. The port equals the op-by-op evaluation.
+The port's own checks (decode against forward, grouped against repeated
+GQA, q-chunked against full attention) mirror ``tests/test_models.py``.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as RC
+from repro.models import layers as RL
+from repro.models import model as RM
+from repro_torch import configs as TC
+from repro_torch.models import layers as TL
+from repro_torch.models import model as TM
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+PORTED = [a for a in TC.ARCHS
+          if TC.get_smoke_config(a).family in TM.ATTENTION_FAMILIES]
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.array(a, copy=True))
+    return t if dtype is None else t.to(dtype)
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _rel(got, want):
+    got, want = _host(got), _host(want)
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _configs(arch, dtype_name, **kw):
+    jdt, tdt, _ = DTYPES[dtype_name]
+    rcfg = dataclasses.replace(RC.get_smoke_config(arch), dtype=jdt, **kw)
+    tcfg = dataclasses.replace(TC.get_smoke_config(arch), dtype=tdt, **kw)
+    return rcfg, tcfg
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_tree(arch):
+    """The reference's float32 smoke parameters of ``arch``, as numpy."""
+    rcfg, _ = _configs(arch, "float32")
+    return _np(_init(rcfg))
+
+
+def _init(rcfg):
+    return jax.jit(lambda k: RM.init_params(rcfg, k))(jax.random.PRNGKey(0))
+
+
+def _models(arch, dtype_name, **kw):
+    """The reference's parameters (``init_params``, key 0) and the port's,
+    carried across. A bfloat16 tree is the float32 one cast (the
+    reference draws in float32 and casts; its router stays float32)."""
+    rcfg, tcfg = _configs(arch, dtype_name, **kw)
+    rparams = jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.asarray(
+            a, jnp.float32 if path[-1].key == "router" else rcfg.dtype),
+        _ref_tree(arch))
+    tparams = params_from_numpy(tcfg, _np(rparams), "cpu")
+    return rcfg, tcfg, rparams, tparams
+
+
+def _batch(cfg, rng, B=2, S=16):
+    """Numpy inputs of one batch (the reference test's draws)."""
+    if cfg.family == "audio":
+        return {"embeds": rng.standard_normal((B, S, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "vlm":
+        ni = cfg.n_image_tokens
+        return {"tokens": rng.integers(0, cfg.vocab_size, (B, S - ni))
+                .astype(np.int32),
+                "patch_embeds": rng.standard_normal((B, ni, cfg.d_model))
+                .astype(np.float32)}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S))
+            .astype(np.int32)}
+
+
+def _both(batch, rcfg):
+    jb = {k: jnp.asarray(v, rcfg.dtype if v.dtype == np.float32 else None)
+          for k, v in batch.items()}
+    tb = {k: _t(v) for k, v in batch.items()}
+    return jb, tb
+
+
+# ---------------------------------------------------------------------------
+# configs and parameters
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", TC.ARCHS)
+def test_configs_match_field_for_field(arch):
+    for get in ("get_config", "get_smoke_config"):
+        ref = dataclasses.asdict(getattr(RC, get)(arch))
+        port = dataclasses.asdict(getattr(TC, get)(arch))
+        assert str(ref.pop("dtype").dtype) == "bfloat16"
+        assert port.pop("dtype") is torch.bfloat16
+        assert port == ref
+    assert TC.ARCHS == RC.ARCHS and TC.SHAPES == RC.SHAPES
+    cfg_r, cfg_t = RC.get_config(arch), TC.get_config(arch)
+    for shape in RC.SHAPES:
+        assert TC.shape_applicable(cfg_t, shape) == \
+            RC.shape_applicable(cfg_r, shape)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_params_round_trip(arch):
+    rcfg, tcfg, rparams, tparams = _models(arch, "bfloat16")
+    back = params_to_numpy(tparams)
+    flat_r = jax.tree_util.tree_leaves_with_path(rparams)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_r) == len(flat_b)
+    for path, leaf in flat_r:
+        np.testing.assert_array_equal(
+            np.asarray(jnp.asarray(flat_b[path], leaf.dtype)), np.asarray(leaf))
+    assert TM.param_count(tparams) == RM.param_count(rparams)
+    assert TM.active_param_count(tcfg, tparams) == \
+        RM.active_param_count(rcfg, rparams)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1p5b", "granite_moe_3b_a800m"])
+def test_bfloat16_params_are_the_float32_draws_cast(arch):
+    """What ``_models`` relies on: the reference's bfloat16 parameters are
+    its float32 draws cast (biases, norms, the float32 router included)."""
+    rcfg, _, rparams, _ = _models(arch, "bfloat16")
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(
+        np.asarray(a), np.asarray(b)), rparams, _init(rcfg))
+
+
+def test_params_from_numpy_checks_shapes():
+    _, tcfg = _configs("qwen2_1p5b", "float32")
+    tree = jax.tree.map(np.copy, _ref_tree("qwen2_1p5b"))
+    tree["layers"]["attn"]["wq"] = tree["layers"]["attn"]["wq"][:, :-1]
+    with pytest.raises(ValueError, match="wq"):
+        params_from_numpy(tcfg, tree, "cpu")
+    del tree["layers"]["attn"]["wq"]
+    with pytest.raises(ValueError, match="keys"):
+        params_from_numpy(tcfg, tree, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_rmsnorm_twin(rng, dtype_name):
+    jdt, tdt, _ = DTYPES[dtype_name]
+    x = rng.standard_normal((2, 5, 24)).astype(np.float32) * 3
+    scale = rng.standard_normal(24).astype(np.float32)
+    want = RL.rmsnorm({"scale": jnp.asarray(scale, jdt)}, jnp.asarray(x, jdt))
+    got = TL.rmsnorm({"scale": _t(scale, tdt)}, _t(x, tdt))
+    assert got.dtype == tdt
+    rtol = 1e-6 if dtype_name == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(_host(got), _host(want), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("offset", [0, 1000])
+def test_apply_rope_twin(rng, offset):
+    x = rng.standard_normal((2, 7, 3, 8)).astype(np.float32)
+    pos = np.arange(offset, offset + 7, dtype=np.int32)
+    want = RL.apply_rope(jnp.asarray(x), jnp.asarray(pos)[None, :], 500.0)
+    got = TL.apply_rope(_t(x), _t(pos)[None, :], 500.0)
+    np.testing.assert_allclose(_host(got), _host(want), rtol=1e-5, atol=1e-5)
+    # half-split, not interleaved: position 0 is the identity on both halves
+    zero = TL.apply_rope(_t(x), torch.zeros(1, 7, dtype=torch.int32))
+    np.testing.assert_allclose(_host(zero), x, rtol=0, atol=0)
+
+
+def _attention_params(rng, d, H, kv, hd, bias):
+    p = _np(RL.init_attention(jax.random.PRNGKey(1), d, H, kv, hd, bias,
+                              jnp.float32))
+    for b in ("bq", "bk", "bv"):  # non-zero biases, so the adds are tested
+        if b in p:
+            p[b] = rng.standard_normal(p[b].shape).astype(np.float32) * 0.1
+    return ({k: jnp.asarray(v) for k, v in p.items()},
+            {k: _t(v) for k, v in p.items()})
+
+
+@pytest.mark.parametrize("q_chunk", [0, 4])
+@pytest.mark.parametrize("bias", [False, True])
+def test_causal_attention_twin(rng, q_chunk, bias):
+    jp, tp = _attention_params(rng, 32, 8, 2, 4, bias)
+    x = rng.standard_normal((2, 12, 32)).astype(np.float32)
+    pos = np.arange(12, dtype=np.int32)
+    want = jax.jit(functools.partial(RL.causal_attention, q_chunk=q_chunk))(
+        jp, jnp.asarray(x), jnp.asarray(pos))
+    got = TL.causal_attention(tp, _t(x), _t(pos), q_chunk=q_chunk)
+    np.testing.assert_allclose(_host(got), _host(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 9])
+def test_attention_decode_twin_writes_cache_in_place(rng, pos):
+    jp, tp = _attention_params(rng, 32, 8, 2, 4, True)
+    x = rng.standard_normal((2, 1, 32)).astype(np.float32)
+    ck = rng.standard_normal((2, 10, 2, 4)).astype(np.float32)
+    cv = rng.standard_normal((2, 10, 2, 4)).astype(np.float32)
+    want, wk, wv = jax.jit(RL.attention_decode)(
+        jp, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(pos))
+    tk, tv = _t(ck), _t(cv)
+    got, gk, gv = TL.attention_decode(tp, _t(x), tk, tv, pos)
+    assert gk is tk and gv is tv  # the same buffers, written in place
+    np.testing.assert_allclose(_host(got), _host(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_host(tk), _host(wk), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_host(tv), _host(wv), rtol=1e-5, atol=1e-6)
+    # a 0-d tensor position gives the same bits as an int
+    tk2, tv2 = _t(ck), _t(cv)
+    got2, _, _ = TL.attention_decode(tp, _t(x), tk2, tv2, torch.tensor(pos))
+    assert torch.equal(got2, got) and torch.equal(tk2, tk)
+    with pytest.raises(ValueError, match="outside"):
+        TL.attention_decode(tp, _t(x), tk, tv, 10)
+
+
+def test_mlp_twin(rng):
+    p = _np(RL.init_mlp(jax.random.PRNGKey(2), 16, 40, jnp.float32))
+    x = rng.standard_normal((3, 5, 16)).astype(np.float32)
+    want = jax.jit(RL.mlp)({k: jnp.asarray(v) for k, v in p.items()},
+                           jnp.asarray(x))
+    got = TL.mlp({k: _t(v) for k, v in p.items()}, _t(x))
+    np.testing.assert_allclose(_host(got), _host(want), rtol=1e-5, atol=1e-6)
+
+
+def _ref_route(p, x, top_k, cf):
+    """The reference ``moe``'s routing steps (layers.py:339-377), local."""
+    b, l, _ = x.shape
+    E = p["router"].shape[-1]
+    logits = jnp.einsum("bld,de->ble", x, p["router"].astype(x.dtype),
+                        preferred_element_type=jnp.float32)
+    probs = jax.nn.softmax(logits, axis=-1)
+    _, expert_idx = jax.lax.top_k(probs, top_k)
+    capacity = max(1, int(l * top_k * cf / E))
+    flat = expert_idx.reshape(b, l * top_k)
+    rank = RL._expert_rank(flat)
+    keep = rank < capacity
+    slot = jnp.where(keep, flat * capacity + rank,
+                     p["w_gate"].shape[0] * capacity)
+    return {"expert": flat, "rank": rank, "keep": keep, "slot": slot}
+
+
+@pytest.mark.parametrize("cf,n_padded", [(1.25, 0), (0.5, 0), (16.0, 0),
+                                         (1.25, 8)])
+def test_moe_twin(rng, cf, n_padded):
+    d, ff, E, k = 16, 24, 5, 2
+    p = _np(RL.init_moe(jax.random.PRNGKey(3), d, ff, E, jnp.float32,
+                        n_padded=n_padded))
+    x = rng.standard_normal((3, 12, d)).astype(np.float32)
+    jp = {kk: jnp.asarray(v) for kk, v in p.items()}
+    tp = {kk: _t(v) for kk, v in p.items()}
+    want_y, want_aux = jax.jit(lambda p_, x_: RL.moe(p_, x_, k, cf))(
+        jp, jnp.asarray(x))
+    got_y, got_aux = TL.moe(tp, _t(x), k, capacity_factor=cf)
+    want_r = jax.jit(lambda p_, x_: _ref_route(p_, x_, k, cf))(
+        jp, jnp.asarray(x))
+    got_r = TL.moe_route(tp, _t(x), k, cf)
+    for key in ("expert", "rank", "keep", "slot"):
+        np.testing.assert_array_equal(got_r[key].numpy(),
+                                      np.asarray(want_r[key]), err_msg=key)
+    if cf < 1:
+        assert not got_r["keep"].all()  # the drop slot is exercised
+    np.testing.assert_allclose(_host(got_y), _host(want_y), rtol=1e-5,
+                               atol=1e-6)
+    assert abs(float(got_aux) - float(want_aux)) < 1e-6
+
+
+def test_expert_rank_twin(rng):
+    flat = rng.integers(0, 6, (4, 97)).astype(np.int32)
+    want = np.asarray(jax.jit(RL._expert_rank)(jnp.asarray(flat)))
+    np.testing.assert_array_equal(TL._expert_rank(_t(flat)).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# whole models
+# ---------------------------------------------------------------------------
+
+
+def _strict_jit(fn, *args):
+    """``fn`` compiled for ``args`` with XLA's excess precision off: the
+    reference's code as written, each op rounding where the code casts."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+
+
+def _reference_run(rcfg, rparams, jb, labels, dec):
+    """The reference's forward, loss and a teacher-forced decode of every
+    position of ``dec`` (a lax.scan of ``decode_step``), in one program."""
+    key = "embeds" if rcfg.family == "audio" else "tokens"
+    B, S = dec.shape[:2]
+
+    def run(p, b, lab, d):
+        logits, aux = RM.forward(p, rcfg, b)
+        loss = RM.loss_fn(p, rcfg, {**b, "labels": lab})
+
+        def step(cache, i):
+            x = jax.lax.dynamic_slice_in_dim(d, i, 1, axis=1)
+            lg, cache = RM.decode_step(p, rcfg, cache, {key: x}, i)
+            return cache, lg
+        cache, dec_logits = jax.lax.scan(step, RM.init_cache(rcfg, B, S),
+                                         jnp.arange(S, dtype=jnp.int32))
+        return logits, aux, loss, dec_logits, cache
+
+    args = (rparams, jb, jnp.asarray(labels), dec)
+    return _strict_jit(run, *args)(*args)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_forward_and_decode_twin(arch, dtype_name, rng):
+    """forward (full and last-only), loss and a teacher-forced decode of
+    every position against the reference, on carried weights."""
+    bound = DTYPES[dtype_name][2]
+    rcfg, tcfg, rparams, tparams = _models(arch, dtype_name,
+                                           capacity_factor=16.0)
+    B, S = 2, 16
+    batch = _batch(rcfg, rng, B, S)
+    jb, tb = _both(batch, rcfg)
+    labels = (rng.integers(0, rcfg.vocab_size, (B, S, rcfg.n_codebooks))
+              if rcfg.family == "audio"
+              else rng.integers(0, rcfg.vocab_size, (B, S))).astype(np.int32)
+    key = "embeds" if rcfg.family == "audio" else "tokens"
+    if rcfg.family == "vlm":  # decode has no image prefix: tokens only
+        dec = _both({key: rng.integers(0, rcfg.vocab_size, (B, S))
+                     .astype(np.int32)}, rcfg)
+    else:
+        dec = ({key: jb[key]}, {key: tb[key]})
+    want, want_aux, want_loss, want_dec, want_cache = _reference_run(
+        rcfg, rparams, jb, labels, dec[0][key])
+
+    got, got_aux = TM.forward(tparams, tcfg, tb)
+    assert got.dtype == tcfg.dtype and _rel(got, want) < bound
+    assert abs(float(got_aux) - float(want_aux)) < bound * max(
+        1.0, abs(float(want_aux)))
+    last, _ = TM.forward(tparams, tcfg, tb, last_only=True)
+    assert _rel(last, want[:, -1:]) < bound
+    got_loss = float(TM.loss_fn(tparams, tcfg, {**tb, "labels": _t(labels)}))
+    assert abs(got_loss - float(want_loss)) < bound * abs(float(want_loss))
+
+    tcache = TM.init_cache(tcfg, B, S, "cpu")
+    for i in range(S):
+        gl, tcache = TM.decode_step(tparams, tcfg, tcache,
+                                    {key: dec[1][key][:, i:i + 1]}, i)
+        assert _rel(gl, want_dec[i]) < bound, (arch, i)
+    assert _rel(tcache["k"], want_cache["k"]) < bound
+    assert _rel(tcache["v"], want_cache["v"]) < bound
+
+
+@pytest.mark.parametrize("arch", [a for a in PORTED if a != "llava_next_34b"])
+def test_decode_matches_forward(arch, rng):
+    """The port alone: teacher-forced decode reproduces full-sequence
+    forward logits (``test_models.py::test_decode_matches_forward``'s
+    bound; llava skipped there too: decode has no image prefix)."""
+    cfg = dataclasses.replace(TC.get_smoke_config(arch), dtype=torch.float32,
+                              capacity_factor=16.0)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    B, S = 2, 16
+    tb = {k: _t(v) for k, v in _batch(cfg, rng, B, S).items()}
+    logits_f, _ = TM.forward(params, cfg, tb)
+    cache = TM.init_cache(cfg, B, S, "cpu")
+    key = "embeds" if cfg.family == "audio" else "tokens"
+    outs = []
+    for i in range(S):
+        lg, cache = TM.decode_step(params, cfg, cache,
+                                   {key: tb[key][:, i:i + 1]}, i)
+        outs.append(lg[:, -1])
+    dec = torch.stack(outs, dim=1).reshape(logits_f.shape)
+    rel = float((dec - logits_f).abs().max() / logits_f.abs().max())
+    assert rel < 2e-2, f"{arch}: decode/forward rel err {rel}"
+
+
+def test_gqa_grouped_equals_repeated_kv(rng):
+    """Grouped GQA == explicit repeat_kv attention, in the port."""
+    d, H, kv, hd = 32, 8, 2, 4
+    p = TL.init_attention(torch.Generator().manual_seed(0), d, H, kv, hd,
+                          False, torch.float32, torch.device("cpu"))
+    x = _t(rng.standard_normal((2, 12, d)).astype(np.float32))
+    pos = torch.arange(12, dtype=torch.int32)
+    out = TL.causal_attention(p, x, pos)
+    q, k, v = TL._qkv(p, x, pos[None, :], 10000.0)
+    k = k.repeat_interleave(H // kv, dim=2)
+    v = v.repeat_interleave(H // kv, dim=2)
+    s = torch.einsum("bqhk,blhk->bhql", q, k) / np.sqrt(hd)
+    s = torch.where(pos[:, None] >= pos[None, :], s, -torch.inf)
+    o = torch.einsum("bhql,blhk->bqhk", torch.softmax(s, dim=-1), v)
+    want = torch.einsum("bqhk,hkd->bqd", o, p["wo"])
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-4)
+
+
+def test_q_chunked_attention_matches_full(rng):
+    p = TL.init_attention(torch.Generator().manual_seed(0), 32, 4, 4, 8,
+                          False, torch.float32, torch.device("cpu"))
+    x = _t(rng.standard_normal((2, 32, 32)).astype(np.float32))
+    pos = torch.arange(32, dtype=torch.int32)
+    full = TL.causal_attention(p, x, pos, q_chunk=0)
+    chunked = TL.causal_attention(p, x, pos, q_chunk=8)
+    np.testing.assert_allclose(full.numpy(), chunked.numpy(), atol=1e-4)
+
+
+def test_layer_views_follow_copies_and_moves():
+    cfg = dataclasses.replace(TC.get_smoke_config("qwen2_1p5b"),
+                              dtype=torch.float32)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    wq = params["layers"]["attn"]["wq"]
+    view = params["layers"].layer(1)["attn"]["wq"]
+    with torch.no_grad():
+        wq.add_(1.0)
+    assert torch.equal(view, wq[1])
+    moved = params.to(torch.float64)
+    assert moved["layers"].layer(1)["attn"]["wq"].dtype == torch.float64

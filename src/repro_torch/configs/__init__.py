@@ -3,11 +3,9 @@
 Every assigned architecture is a module exposing ``CONFIG`` (the published
 configuration, shapes only: no weights are downloaded) and
 ``smoke_config()`` (a reduced same-family config for CPU tests): copies of
-``repro.configs``' modules, field for field. The port serves the
-attention families (dense, moe, audio, vlm); ``zamba2_1p2b`` and
-``xlstm_350m`` are listed, and their models raise ``NotImplementedError``
-until the SSM layers are ported (ROADMAP.md A16), as does the dry run's
-``input_specs``, which is not ported yet.
+``repro.configs``' modules, field for field. Every family is served
+and trained. The dry run's ``input_specs`` (ShapeDtypeStruct stand-ins
+for the mesh launchers) is not ported yet (ROADMAP.md A16.4).
 """
 from __future__ import annotations
 

@@ -442,7 +442,10 @@ def pipelined_ranked_fold(items: Sequence, transfer: Callable,
         is pruned at the head re-check here — speculation wastes at most
         ``depth`` transfers' worth of BYTES, never an execution and never
         a result (tests/test_stream.py asserts the executed set matches
-        depth 0 exactly).
+        depth 0 exactly). A head-pruned item's copy runs on and is
+        waited for when the pass ends, never cancelled, so the transfers
+        a run makes do not depend on when the worker thread picked them
+        up.
 
     Returns ``(state, ranked_skipped, prefetch_wasted)`` where
     ``prefetch_wasted`` counts transferred-then-pruned items (a subset of
@@ -496,6 +499,7 @@ def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
         return cols
 
     ring: deque = deque()  # (pos, item, future cols): not yet bound-gated
+    dropped = []  # futures of head-pruned items, waited for at the end
     idx = start
     head = start
     inflight = 0
@@ -531,7 +535,13 @@ def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
                         tel.instant("ranked_prune", "main", qid=stats.qid,
                                     stage="head", wasted_transfer=True,
                                     **attr(item))
-                    fut.cancel()  # un-started copies are dropped entirely
+                    # the speculative copy is left to run and waited for
+                    # when the pass ends, never cancelled: whether an
+                    # un-started one could still be cancelled depends on
+                    # the worker thread's timing, and what a run moves
+                    # (and rides from the residency LRU) must not
+                    # (ROADMAP.md C7)
+                    dropped.append(fut)
                     continue
                 a = attr(item)
                 t0 = time.perf_counter()
@@ -558,4 +568,6 @@ def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
             for _, _, fut in ring:
                 fut.cancel()
             ring.clear()
+            for fut in dropped:
+                fut.exception()  # its error, if any, is dropped with it
     return state

@@ -1,5 +1,5 @@
 """Batched LLM serving launcher of the port: prefill + greedy decode with a
-KV cache, on the card unless ``--device cpu`` is given.
+KV / SSM-state cache, on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_model --arch qwen2_1p5b \\
         --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +32,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _device_of(cache: Mapping[str, Any]) -> torch.device:
+    """The device of a cache's buffers (KV, or SSM / xLSTM states)."""
+    leaf: Any = cache
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    return leaf.device
+
+
 def generate(params: M.ParamTree, cfg: M.ModelConfig,
-             cache: Dict[str, torch.Tensor], prompt: np.ndarray, gen: int,
+             cache: Dict[str, Any], prompt: np.ndarray, gen: int,
              rng: Optional[np.random.Generator] = None
              ) -> Tuple[np.ndarray, torch.Tensor, Dict[str, float]]:
     """Prefill ``prompt`` ([B, P] int32 ids) token by token into ``cache``,
@@ -42,7 +50,7 @@ def generate(params: M.ParamTree, cfg: M.ModelConfig,
     d_model))``, P + gen draws in order) and the prompt ids are unused.
     Returns (ids [B, gen] int32, the last step's logits, {"prefill_s",
     "decode_s"} host seconds, each ending in a device synchronise)."""
-    dev = cache["k"].device
+    dev = _device_of(cache)
     B, P = prompt.shape
     tokens = torch.as_tensor(np.asarray(prompt, np.int32)).to(dev)
 

@@ -1,39 +1,46 @@
-"""One model for the attention families of the reference's model zoo.
+"""One model for every family of the reference's model zoo.
 
-Families served by this port:
-  dense — llama-style GQA transformer (smollm, chatglm3, yi, qwen2)
-  moe   — GQA attention + top-k MoE FFN (granite-moe, qwen3-moe)
-  audio — dense backbone over precomputed EnCodec frame embeddings
-          (STUB frontend) + ``n_codebooks`` output heads (musicgen)
-  vlm   — dense backbone over [patch-embeds ; token-embeds] (STUB anyres
-          frontend) (llava-next)
-``hybrid_mamba`` (zamba2) and ``xlstm`` need the SSM layers, which are not
-ported yet (ROADMAP.md A16): every entry point raises
-``NotImplementedError`` for them.
+Families:
+  dense        — llama-style GQA transformer (smollm, chatglm3, yi, qwen2)
+  moe          — GQA attention + top-k MoE FFN (granite-moe, qwen3-moe)
+  hybrid_mamba — Mamba2 backbone + ONE shared attention block applied every
+                 ``attn_every`` layers, Zamba-style param sharing (zamba2)
+  xlstm        — alternating mLSTM / sLSTM blocks (xlstm)
+  audio        — dense backbone over precomputed EnCodec frame embeddings
+                 (STUB frontend) + ``n_codebooks`` output heads (musicgen)
+  vlm          — dense backbone over [patch-embeds ; token-embeds] (STUB
+                 anyres frontend) (llava-next)
 
 Parameters live in a ``ParamTree``, an ``nn.Module`` whose leaves carry the
 reference's names and shapes, layer stacks included (``layers.attn.wq``
-is ``[n_layers, d, h, hd]``), so weights carry across as copies
+is ``[n_layers, d, h, hd]``; zamba2's ``mamba_main`` is ``[n_groups,
+attn_every, ...]``), so weights carry across as copies
 (``models.convert``). The reference's ``lax.scan`` over stacked layers is
 a Python loop over per-layer views; its ``dynamic_update_slice`` of
-donated caches is an in-place write. The activation-sharding fields of
-``ModelConfig`` (``act_*``, ``moe_*_axis``, ``ssm_head_axis``,
-``score_seq_axis``, ``vocab_axis``) are kept and constrain nothing on one
-device; ``remat`` is kept for the training slice and ignored.
+donated caches is an in-place write. Leaves are frozen as built; training
+makes them trainable (``requires_grad_()``, ``train.step``). The
+activation-sharding fields of ``ModelConfig`` (``act_*``, ``moe_*_axis``,
+``ssm_head_axis``, ``score_seq_axis``, ``vocab_axis``) are kept and
+constrain nothing on one device. ``remat`` takes its nearest torch meaning
+while gradients are recorded (``_maybe_remat``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")
+FAMILIES = ATTENTION_FAMILIES + ("hybrid_mamba", "xlstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +73,7 @@ class ModelConfig:
     # execution knobs
     q_chunk: int = 0
     ssd_chunk: int = 64
-    remat: str = "none"  # none | full | dots (training; ignored here)
+    remat: str = "none"  # none | full | dots (training: _maybe_remat)
     vocab_pad_multiple: int = 16
     # the reference's mesh layout of activations; one device: no constraint
     act_batch_axes: Any = None
@@ -102,12 +109,8 @@ class ModelConfig:
         return self.family == "audio"
 
 
-def _require_attention_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("hybrid_mamba", "xlstm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family needs the SSM layers "
-            "(models/ssm.py), not ported yet (ROADMAP.md A16)")
-    if cfg.family not in ATTENTION_FAMILIES:
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
 
 
@@ -118,9 +121,11 @@ def _require_attention_family(cfg: ModelConfig) -> None:
 
 class ParamTree(nn.Module):
     """Parameters named as the reference's dict pytree: a nested key is a
-    submodule, a leaf a frozen ``nn.Parameter``. Indexing by key gives the
-    leaf or the subtree, so layer functions take it as the reference's
-    dicts; ``layer(i)`` gives layer i of a stacked tree as views."""
+    submodule, a leaf an ``nn.Parameter`` (frozen as built;
+    ``requires_grad_()`` makes every leaf trainable). Indexing by key gives
+    the leaf or the subtree, so layer functions take it as the reference's
+    dicts; ``layer(i)`` gives layer i of a stacked tree as views
+    (``layer(g, j)`` of a two-level stack)."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
@@ -130,7 +135,7 @@ class ParamTree(nn.Module):
             else:
                 self.register_parameter(
                     key, nn.Parameter(value, requires_grad=False))
-        self._layers: Optional[List[Dict[str, Any]]] = None
+        self._layers: Optional[Dict[Tuple[int, ...], Dict[str, Any]]] = None
 
     def __getitem__(self, key: str):
         if key in self._parameters:
@@ -150,13 +155,21 @@ class ParamTree(nn.Module):
         out.update({k: m.tree() for k, m in self._modules.items()})
         return out
 
-    def layer(self, i: int) -> Dict[str, Any]:
-        """Layer i of a stacked tree: a nested dict of views ``leaf[i]``
-        (built once; the views follow in-place copies into the leaves)."""
+    def layer(self, *index: int) -> Dict[str, Any]:
+        """Layer ``index`` of a stacked tree: a nested dict of views
+        ``leaf[index]``. Views are cached while no gradient is recorded
+        (they follow in-place copies into the leaves); while autograd
+        records into trainable leaves, each call builds fresh views, so no
+        view carries one step's graph into the next."""
+        if torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            return _index_tree(self.tree(), index)
         if self._layers is None:
-            n = next(iter(self.parameters())).shape[0]
-            self._layers = [_index_tree(self.tree(), j) for j in range(n)]
-        return self._layers[i]
+            self._layers = {}
+        views = self._layers.get(index)
+        if views is None:
+            views = self._layers[index] = _index_tree(self.tree(), index)
+        return views
 
     def _apply(self, fn, *args, **kwargs):
         # ``.to()`` and friends replace the leaves: drop the cached views
@@ -165,13 +178,13 @@ class ParamTree(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
 
-def _index_tree(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+def _index_tree(tree: Mapping[str, Any], i) -> Dict[str, Any]:
     return {k: _index_tree(v, i) if isinstance(v, Mapping) else v[i]
             for k, v in tree.items()}
 
 
-def _layer_tree(cfg: ModelConfig, gen, device, n: int) -> Dict[str, Any]:
-    stack = (n,)
+def _layer_tree(cfg: ModelConfig, gen, device, stack: Tuple[int, ...]
+                ) -> Dict[str, Any]:
     tree = {
         "ln1": L.init_rmsnorm(cfg.d_model, cfg.dtype, device, stack),
         "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads,
@@ -189,13 +202,41 @@ def _layer_tree(cfg: ModelConfig, gen, device, n: int) -> Dict[str, Any]:
     return tree
 
 
+def _mamba_layer_tree(cfg: ModelConfig, gen, device,
+                      stack: Tuple[int, ...]) -> Dict[str, Any]:
+    return {
+        "ln": L.init_rmsnorm(cfg.d_model, cfg.dtype, device, stack),
+        "mamba": S.init_mamba2(gen, cfg.d_model, cfg.ssm_state,
+                               cfg.mamba_head_dim, dtype=cfg.dtype,
+                               device=device, stack=stack),
+    }
+
+
+def _xlstm_pair_tree(cfg: ModelConfig, gen, device,
+                     stack: Tuple[int, ...]) -> Dict[str, Any]:
+    return {
+        "ln_m": L.init_rmsnorm(cfg.d_model, cfg.dtype, device, stack),
+        "mlstm": S.init_mlstm(gen, cfg.d_model, cfg.n_heads, dtype=cfg.dtype,
+                              device=device, stack=stack),
+        "ln_s": L.init_rmsnorm(cfg.d_model, cfg.dtype, device, stack),
+        "slstm": S.init_slstm(gen, cfg.d_model, cfg.n_heads, dtype=cfg.dtype,
+                              device=device, stack=stack),
+    }
+
+
+def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups of ``attn_every`` Mamba2 layers, Mamba2 layers after them)."""
+    n_groups = cfg.n_layers // cfg.attn_every
+    return n_groups, cfg.n_layers - n_groups * cfg.attn_every
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> ParamTree:
     """Random parameters of ``cfg`` drawn from ``generator`` (a fresh one
     seeded 0 when None) on ``device`` (the card when None; ``"meta"`` gives
     shapes and dtypes only). The reference's tree, leaf for leaf; the
     values differ from the reference's draws (``convert`` carries those)."""
-    _require_attention_family(cfg)
+    _check_family(cfg)
     device = resolve_device(device)
     gen = generator
     if gen is None and device.type != "meta":
@@ -212,7 +253,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                          cfg.dtype, device)
         else:
             tree["lm_head"] = L._normal(gen, (V, d), s, cfg.dtype, device)
-    tree["layers"] = _layer_tree(cfg, gen, device, cfg.n_layers)
+    if cfg.family in ATTENTION_FAMILIES:
+        tree["layers"] = _layer_tree(cfg, gen, device, (cfg.n_layers,))
+    elif cfg.family == "hybrid_mamba":
+        n_groups, tail = _hybrid_groups(cfg)
+        tree["mamba_main"] = _mamba_layer_tree(cfg, gen, device,
+                                               (n_groups, cfg.attn_every))
+        if tail:
+            tree["mamba_tail"] = _mamba_layer_tree(cfg, gen, device, (tail,))
+        tree["shared_attn"] = _layer_tree(cfg, gen, device, ())
+    else:  # xlstm
+        tree["pairs"] = _xlstm_pair_tree(cfg, gen, device,
+                                         (cfg.n_layers // 2,))
     if cfg.family == "vlm":
         tree["img_proj"] = L._normal(gen, (d, d), s, cfg.dtype, device)
     return ParamTree(tree)
@@ -234,8 +286,48 @@ def active_param_count(cfg: ModelConfig, params: ParamTree) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Blocks (with the remat policy)
 # ---------------------------------------------------------------------------
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig):
+    """``run(block, *args)`` under ``cfg.remat``, the nearest meaning of
+    the reference's ``jax.checkpoint`` policies, while gradients are
+    recorded (otherwise the block just runs):
+      * ``full``: ``torch.utils.checkpoint`` of the whole block: only its
+        inputs are kept, everything inside is recomputed in the backward;
+      * ``dots``: the block under a selective checkpoint that keeps the
+        output of every matrix product (``mm``, ``bmm``, ``addmm``) and
+        recomputes the rest, the elementwise tail (norms, activations,
+        softmax, gates): ``checkpoint_dots_with_no_batch_dims`` without its
+        batch-dimension filter (torch's einsum lowers plain and batched
+        products alike to ``bmm``)."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}")
+
+    def run(block, *args):
+        if cfg.remat == "none" or not torch.is_grad_enabled():
+            return block(*args)
+        kw: Dict[str, Any] = {"use_reentrant": False}
+        if cfg.remat == "dots":
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                _save_dots)
+        return _ckpt.checkpoint(block, *args, **kw)
+
+    return run
 
 
 rmsn = L.rmsnorm
@@ -253,6 +345,20 @@ def _moe_block(cfg: ModelConfig, lp, x, positions):
     y, aux = L.moe(lp["moe"], rmsn(lp["ln2"], h), cfg.top_k,
                    cfg.capacity_factor)
     return h + y, aux
+
+
+def _mamba_block(cfg: ModelConfig, lp, x):
+    return x + S.mamba2(lp["mamba"], rmsn(lp["ln"], x), cfg.ssd_chunk)
+
+
+def _xlstm_pair_block(cfg: ModelConfig, lp, x):
+    h = x + S.mlstm(lp["mlstm"], rmsn(lp["ln_m"], x))
+    return h + S.slstm(lp["slstm"], rmsn(lp["ln_s"], h))
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
 
 
 def embed_inputs(params: ParamTree, cfg: ModelConfig,
@@ -287,17 +393,41 @@ def forward(params: ParamTree, cfg: ModelConfig,
 
     ``last_only=True`` is the serving-prefill form: logits for the final
     position only, the [b, S, V] logits never materialised."""
-    _require_attention_family(cfg)
+    _check_family(cfg)
     x, positions = embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layers.layer(i)
-        if cfg.family == "moe":
-            x, aux = _moe_block(cfg, lp, x, positions)
-            aux_total = aux_total + aux
-        else:
-            x = _dense_block(cfg, lp, x, positions)
+    remat = _maybe_remat(cfg)
+    if cfg.family in ATTENTION_FAMILIES:
+        layers = params["layers"]
+        for i in range(cfg.n_layers):
+            lp = layers.layer(i)
+            if cfg.family == "moe":
+                x, aux = remat(functools.partial(_moe_block, cfg, lp), x,
+                               positions)
+                aux_total = aux_total + aux
+            else:
+                x = remat(functools.partial(_dense_block, cfg, lp), x,
+                          positions)
+    elif cfg.family == "hybrid_mamba":
+        main, shared = params["mamba_main"], params["shared_attn"]
+        n_groups, per = main["ln"]["scale"].shape[:2]
+
+        def group(g, h):
+            for j in range(per):
+                h = _mamba_block(cfg, main.layer(g, j), h)
+            return _dense_block(cfg, shared, h, positions)  # shared attn+MLP
+
+        for g in range(n_groups):
+            x = remat(functools.partial(group, g), x)
+        if "mamba_tail" in params:
+            tail = params["mamba_tail"]
+            for i in range(tail["ln"]["scale"].shape[0]):
+                x = _mamba_block(cfg, tail.layer(i), x)
+    else:  # xlstm
+        pairs = params["pairs"]
+        for i in range(pairs["ln_m"]["scale"].shape[0]):
+            x = remat(functools.partial(_xlstm_pair_block, cfg,
+                                        pairs.layer(i)), x)
     if last_only:
         x = x[:, -1:, :]
     return _head(params, cfg, x), aux_total
@@ -305,8 +435,9 @@ def forward(params: ParamTree, cfg: ModelConfig,
 
 def loss_fn(params: ParamTree, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """Causal-LM loss (next-token), forward only. Padded-vocab logits are
-    masked."""
+    """Causal-LM loss (next-token). Padded-vocab logits are masked.
+    Differentiable: with trainable leaves, ``backward()`` fills their
+    ``.grad``."""
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"].long()
     logits = logits.float()
@@ -315,6 +446,9 @@ def loss_fn(params: ParamTree, cfg: ModelConfig,
             >= cfg.vocab_size
         logits = torch.where(pad, -1e9, logits)
     logz = torch.logsumexp(logits, dim=-1)
+    # ``take_along_axis`` counts a negative label from the end, as the
+    # embedding's indexing does a negative id (ROADMAP.md C8)
+    labels = torch.where(labels < 0, labels + logits.shape[-1], labels)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = logz - gold
     if cfg.family == "vlm":  # loss only on text positions (after the image)
@@ -328,43 +462,137 @@ def loss_fn(params: ParamTree, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """KV buffers for single-token decode: [n_layers, b, S, kv, hd] each."""
-    _require_attention_family(cfg)
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """KV / SSM state buffers for single-token decode. Attention families:
+    ``k``/``v`` [n_layers, b, S, kv, hd]. hybrid_mamba: ``ssm_main`` (each
+    Mamba2 state leaf stacked ``[n_groups, attn_every, ...]``; the conv
+    window bfloat16 whatever ``cfg.dtype``), ``shared_k``/``shared_v``
+    [n_groups, b, S, kv, hd] and ``ssm_tail``. xlstm: ``mlstm`` and
+    ``slstm`` states stacked over the pairs, the stabilisers ``m`` at
+    -1e30 (the reference's ``init_cache``; its ``*_init_state`` use -inf)."""
+    _check_family(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    kv_shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family in ATTENTION_FAMILIES:
+        return {"k": zeros((cfg.n_layers,) + kv_shape, cfg.dtype),
+                "v": zeros((cfg.n_layers,) + kv_shape, cfg.dtype)}
+    f32 = torch.float32
+    if cfg.family == "hybrid_mamba":
+        proto = S.init_mamba2(None, cfg.d_model, cfg.ssm_state,
+                              cfg.mamba_head_dim, dtype=cfg.dtype,
+                              device=torch.device("meta"))
+        st = S.mamba2_init_state(proto, batch, torch.device("meta"))
+        n_groups, tail = _hybrid_groups(cfg)
+        cache: Dict[str, Any] = {
+            "ssm_main": {k: zeros((n_groups, cfg.attn_every) + v.shape,
+                                  v.dtype) for k, v in st.items()},
+            "shared_k": zeros((n_groups,) + kv_shape, cfg.dtype),
+            "shared_v": zeros((n_groups,) + kv_shape, cfg.dtype),
+        }
+        if tail:
+            cache["ssm_tail"] = {k: zeros((tail,) + v.shape, v.dtype)
+                                 for k, v in st.items()}
+        return cache
+    n_pairs = cfg.n_layers // 2
+    d_inner = int(cfg.d_model * 2)
+    hd = d_inner // cfg.n_heads
+    H, d = cfg.n_heads, cfg.d_model
+    return {
+        "mlstm": {
+            "C": zeros((n_pairs, batch, H, hd, hd), f32),
+            "nvec": zeros((n_pairs, batch, H, hd), f32),
+            "m": torch.full((n_pairs, batch, H), -1e30, dtype=f32,
+                            device=device),
+        },
+        "slstm": {
+            "c": zeros((n_pairs, batch, d), f32),
+            "nvec": zeros((n_pairs, batch, d), f32),
+            "h": zeros((n_pairs, batch, d), f32),
+            "m": torch.full((n_pairs, batch, d), -1e30, dtype=f32,
+                            device=device),
+        },
+    }
+
+
+def _write_state(views: Mapping[str, torch.Tensor],
+                 new: Mapping[str, torch.Tensor]) -> None:
+    """The reference's ``dynamic_update_slice`` of a layer's state."""
+    for k, v in views.items():
+        v.copy_(new[k])
+
+
+def _mamba_decode(lp, x, states, index):
+    st = {k: v[index] for k, v in states.items()}
+    y, st2 = S.mamba2_decode(lp["mamba"], rmsn(lp["ln"], x), st)
+    _write_state(st, st2)
+    return x + y
 
 
 def decode_step(params: ParamTree, cfg: ModelConfig,
-                cache: Dict[str, torch.Tensor],
+                cache: Dict[str, Any],
                 batch: Mapping[str, torch.Tensor], pos):
     """One-token decode. batch: {"tokens": [b, 1]} (``embeds`` for audio);
-    pos: an int or a 0-d integer tensor. Writes each layer's key and value
-    into ``cache`` in place. Returns (logits [b, 1, V], cache)."""
-    _require_attention_family(cfg)
+    pos: an int or a 0-d integer tensor. Writes each layer's key and value,
+    or its recurrent state, into ``cache`` in place. Returns (logits
+    [b, 1, V], cache)."""
+    _check_family(cfg)
     if cfg.family == "audio":
         x = batch["embeds"].to(cfg.dtype)
     else:
         x = params["embed"][batch["tokens"]]
-    if not isinstance(pos, torch.Tensor):
-        S = cache["k"].shape[2]
-        if not 0 <= pos < S:
-            raise ValueError(f"decode position {pos} outside a cache of {S}")
+    kv = cache.get("k", cache.get("shared_k"))
+    if kv is not None and not isinstance(pos, torch.Tensor):
+        S_ = kv.shape[2]
+        if not 0 <= pos < S_:
+            raise ValueError(f"decode position {pos} outside a cache of {S_}")
         pos = torch.tensor(pos, dtype=torch.int64).to(x.device,
                                                       non_blocking=True)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layers.layer(i)
-        a, _, _ = L.attention_decode(lp["attn"], rmsn(lp["ln1"], x),
-                                     cache["k"][i], cache["v"][i], pos,
-                                     cfg.rope_theta)
-        h = x + a
-        if cfg.family == "moe":
-            y, _ = L.moe(lp["moe"], rmsn(lp["ln2"], h), cfg.top_k,
-                         cfg.capacity_factor)
-        else:
-            y = L.mlp(lp["mlp"], rmsn(lp["ln2"], h))
-        x = h + y
+    if cfg.family in ATTENTION_FAMILIES:
+        layers = params["layers"]
+        for i in range(cfg.n_layers):
+            lp = layers.layer(i)
+            a, _, _ = L.attention_decode(lp["attn"], rmsn(lp["ln1"], x),
+                                         cache["k"][i], cache["v"][i], pos,
+                                         cfg.rope_theta)
+            h = x + a
+            if cfg.family == "moe":
+                y, _ = L.moe(lp["moe"], rmsn(lp["ln2"], h), cfg.top_k,
+                             cfg.capacity_factor)
+            else:
+                y = L.mlp(lp["mlp"], rmsn(lp["ln2"], h))
+            x = h + y
+    elif cfg.family == "hybrid_mamba":
+        main, shared = params["mamba_main"], params["shared_attn"]
+        n_groups, per = main["ln"]["scale"].shape[:2]
+        for g in range(n_groups):
+            for j in range(per):
+                x = _mamba_decode(main.layer(g, j), x,
+                                  cache["ssm_main"], (g, j))
+            a, _, _ = L.attention_decode(shared["attn"],
+                                         rmsn(shared["ln1"], x),
+                                         cache["shared_k"][g],
+                                         cache["shared_v"][g], pos,
+                                         cfg.rope_theta)
+            x = x + a
+            x = x + L.mlp(shared["mlp"], rmsn(shared["ln2"], x))
+        if "mamba_tail" in params:
+            tail = params["mamba_tail"]
+            for i in range(tail["ln"]["scale"].shape[0]):
+                x = _mamba_decode(tail.layer(i), x, cache["ssm_tail"], i)
+    else:  # xlstm
+        pairs = params["pairs"]
+        for i in range(pairs["ln_m"]["scale"].shape[0]):
+            lp = pairs.layer(i)
+            mst = {k: v[i] for k, v in cache["mlstm"].items()}
+            y, mst2 = S.mlstm_decode(lp["mlstm"], rmsn(lp["ln_m"], x), mst)
+            x = x + y
+            sst = {k: v[i] for k, v in cache["slstm"].items()}
+            y, sst2 = S.slstm_decode(lp["slstm"], rmsn(lp["ln_s"], x), sst)
+            _write_state(mst, mst2)
+            _write_state(sst, sst2)
+            x = x + y
     return _head(params, cfg, x), cache

@@ -17,8 +17,10 @@ CUDA against the CPU's and a numpy oracle (NaN last, ties in row order),
 the TPC-H-shaped queries and the ranked queries of ``chip_smoke.py`` are
 held against the same queries on CPU tensors and the numpy oracle, and
 the streamed partitioned path (pinned partitions, copy stream, events)
-against its CPU run, and each ported smoke model (float32) against its
-CPU run on the same weights.
+against its CPU run, each smoke model (float32) against its CPU run on
+the same weights, one float32 train step of three smoke archs against the
+CPU, the training phase's data path against the CPU, and a training
+checkpoint's round trip on the card.
 """
 import numpy as np
 import pytest
@@ -33,7 +35,6 @@ from repro_torch.kernels import bucketize as kb
 from repro_torch.kernels.rle_decode import rle_decode_kernel
 from repro_torch.kernels.segment_reduce import segment_sum_kernel
 from repro_torch.kernels import unpack as ku
-from repro_torch.models.model import ATTENTION_FAMILIES
 
 from torch_twins import (BUCKETIZE_CASES, RLE_CASES, RLE_DRAWS,  # noqa: F401
                          TOPK_CASES, bucketize_cases, cuda_device,
@@ -820,15 +821,14 @@ def test_gpu_shared_scan_folds_after_each_d2h_event(cuda_device,
                 srv.close()
 
 
-SMOKE_MODELS = [a for a in model_configs.ARCHS
-                if model_configs.get_smoke_config(a).family
-                in ATTENTION_FAMILIES]
+SMOKE_MODELS = list(model_configs.ARCHS)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", SMOKE_MODELS)
 def test_gpu_smoke_model_matches_cpu(cuda_device, arch):
-    """Each ported smoke arch in float32 on the card against the CPU with
+    """Each smoke arch (the SSM families included) in float32 on the card
+    against the CPU with
     the same weights: forward and teacher-forced decode logits within
     ``chip_smoke.MODEL_SMOKE_RTOL`` (relative max error), as the model
     phase of ``chip_smoke.py`` holds them."""
@@ -867,3 +867,85 @@ def test_gpu_rmsnorm_and_router_are_batch_invariant(cuda_device):
         assert torch.equal(r16["gate"].reshape(4, 16, 8),
                            torch.cat([r["gate"].reshape(4, 1, 8)
                                       for r in r1], dim=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm_360m", "zamba2_1p2b", "xlstm_350m"])
+def test_gpu_smoke_train_step_matches_cpu(cuda_device, arch):
+    """Two float32 train steps (``grad_accum`` 2) of a smoke arch on the
+    card and on the CPU from the same weights and batch: the losses within
+    rtol 1e-5; every parameter within atol 1e-5 after the steps (1% of the
+    1e-3 step a first AdamW update takes), but for entries whose gradient
+    is near zero, where a first AdamW step moves by about ``lr`` in the
+    direction of the gradient's sign whatever its size: at most a few
+    such entries (``tests/test_torch_train.py``'s count), none beyond two
+    steps of ``lr``."""
+    import dataclasses
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.train import AdamWConfig, TrainConfig, make_train_step
+    from repro_torch.train import pytree
+    from repro_torch.train.step import init_train_state, state_for
+    cfg = dataclasses.replace(model_configs.get_smoke_config(arch),
+                              dtype=torch.float32)
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                         total_steps=20), grad_accum=2)
+    cpu = init_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
+                           "cpu")
+    dev = state_for(params_from_numpy(cfg, params_to_numpy(cpu.params),
+                                      cuda_device).requires_grad_(True), tcfg)
+    step = make_train_step(cfg, tcfg)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32))
+    for _ in range(2):
+        cpu, mc = step(cpu, {"tokens": tok, "labels": tok})
+        dev, md = step(dev, {"tokens": tok.to(cuda_device),
+                             "labels": tok.to(cuda_device)})
+        assert abs(float(md["loss"]) - float(mc["loss"])) <= \
+            1e-5 * abs(float(mc["loss"]))
+    assert int(dev.step) == int(cpu.step) == 2
+    flipped, n = 0, 0
+    for (name, a), (_, b) in zip(pytree.named_leaves(dev.params),
+                                 pytree.named_leaves(cpu.params)):
+        d = (a.detach().cpu() - b.detach()).abs()
+        assert float(d.max()) < 2.5e-3, (name, float(d.max()))
+        flipped += int((d > 1e-5).sum())
+        n += d.numel()
+    assert flipped <= max(4, n // 10_000), (arch, flipped, n)
+
+
+@pytest.mark.gpu
+def test_gpu_training_checkpoint_round_trip(cuda_device, tmp_path):
+    """A bf16 ``TrainState`` on the card saved and restored on the card bit
+    for bit, and on the CPU equal to the card's."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.train import CheckpointManager, TrainConfig, pytree
+    from repro_torch.train.step import init_train_state
+    cfg = model_configs.get_smoke_config("zamba2_1p2b")
+    state = init_train_state(cfg, TrainConfig(grad_compression="topk_index"),
+                             torch.Generator(device=cuda_device).manual_seed(1),
+                             cuda_device)
+    ck = CheckpointManager(str(tmp_path))
+    ck.save(0, state, blocking=True, extra={"data_cursor": 5})
+    like = dataclasses.replace(
+        pytree.map_tree(lambda t: torch.empty_like(t, device="meta"), state),
+        params=M.init_params(cfg, device="meta").requires_grad_(True))
+    for device in (cuda_device, torch.device("cpu")):
+        got, meta = ck.restore(like, device=device)
+        assert meta["extra"]["data_cursor"] == 5
+        for (name, a), (_, b) in zip(pytree.named_leaves(got),
+                                     pytree.named_leaves(state)):
+            assert a.device.type == device.type and a.dtype == b.dtype, name
+            assert torch.equal(chip_smoke._tensor_bits(a.cpu()),
+                               chip_smoke._tensor_bits(b.cpu())), name
+
+
+@pytest.mark.gpu
+def test_gpu_training_data_path_matches_cpu(cuda_device, monkeypatch):
+    """``chip_smoke.train_data_path`` at 2,000 documents: the selection on
+    the card equals its decoded oracle and the CPU pipeline (positions,
+    stream, first batch, stats), and launches the three kernels."""
+    monkeypatch.setattr(chip_smoke, "TRAIN_DOCS", 2000)
+    pipe, rec, launches = chip_smoke.train_data_path(cuda_device, 0, 49152)
+    assert pipe.cursor() == 0 and rec["selected_tokens"] > 0
+    assert all(launches[k] > 0 for k in chip_smoke.TRAIN_KERNELS), launches

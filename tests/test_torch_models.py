@@ -8,9 +8,11 @@ across by ``convert.params_from_numpy``. Tolerances:
     bfloat16 ulp (rtol 2^-7);
   * ``moe``: expert ids, ranks, keep mask and slots equal; y within rtol
     1e-5; the aux loss within 1e-6;
-  * ``forward`` / ``decode_step`` of each ported smoke arch: max |delta| /
-    max |logit| below 1e-4 in float32 and 2e-2 in bfloat16; the KV caches
-    after decode within the same bound.
+  * ``forward`` / ``decode_step`` of each smoke arch (the attention and
+    the SSM families): max |delta| / max |logit| below 1e-4 in float32 and
+    2e-2 in bfloat16; every cache leaf after decode (KV, SSM and xLSTM
+    states) within the same bound, in the reference's dtype (a bfloat16
+    leaf, such as the Mamba2 conv window in a float32 model, within 2e-2).
 The whole-model reference is compiled with XLA's excess precision off
 (``compiler_options={"xla_allow_excess_precision": False}``): its code as
 written, each op rounding where the code casts. With the default (on),
@@ -40,8 +42,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 
-PORTED = [a for a in TC.ARCHS
-          if TC.get_smoke_config(a).family in TM.ATTENTION_FAMILIES]
+PORTED = list(TC.ARCHS)
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -87,13 +88,14 @@ def _init(rcfg):
 
 def _models(arch, dtype_name, **kw):
     """The reference's parameters (``init_params``, key 0) and the port's,
-    carried across. A bfloat16 tree is the float32 one cast (the
-    reference draws in float32 and casts; its router stays float32)."""
+    carried across. A bfloat16 tree is the float32 one cast, each leaf to
+    the dtype the reference gives it (it draws in float32 and casts; its
+    router and the SSM gates and biases stay float32)."""
     rcfg, tcfg = _configs(arch, dtype_name, **kw)
-    rparams = jax.tree_util.tree_map_with_path(
-        lambda path, a: jnp.asarray(
-            a, jnp.float32 if path[-1].key == "router" else rcfg.dtype),
-        _ref_tree(arch))
+    dtypes = jax.eval_shape(lambda: RM.init_params(rcfg,
+                                                   jax.random.PRNGKey(0)))
+    rparams = jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype),
+                           _ref_tree(arch), dtypes)
     tparams = params_from_numpy(tcfg, _np(rparams), "cpu")
     return rcfg, tcfg, rparams, tparams
 
@@ -155,7 +157,8 @@ def test_params_round_trip(arch):
         RM.active_param_count(rcfg, rparams)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_1p5b", "granite_moe_3b_a800m"])
+@pytest.mark.parametrize("arch", ["qwen2_1p5b", "granite_moe_3b_a800m",
+                                  "zamba2_1p2b", "xlstm_350m"])
 def test_bfloat16_params_are_the_float32_draws_cast(arch):
     """What ``_models`` relies on: the reference's bfloat16 parameters are
     its float32 draws cast (biases, norms, the float32 router included)."""
@@ -376,8 +379,55 @@ def test_forward_and_decode_twin(arch, dtype_name, rng):
         gl, tcache = TM.decode_step(tparams, tcfg, tcache,
                                     {key: dec[1][key][:, i:i + 1]}, i)
         assert _rel(gl, want_dec[i]) < bound, (arch, i)
-    assert _rel(tcache["k"], want_cache["k"]) < bound
-    assert _rel(tcache["v"], want_cache["v"]) < bound
+    want_leaves = jax.tree_util.tree_leaves_with_path(want_cache)
+    assert len(want_leaves) == len(jax.tree.leaves(tcache))
+    for path, w in want_leaves:
+        g = functools.reduce(lambda t, k: t[k.key], path, tcache)
+        assert g.dtype == getattr(torch, str(w.dtype)), path
+        # the Mamba2 conv window is bfloat16 whatever the model's dtype
+        leaf_bound = DTYPES["bfloat16"][2] if g.dtype == torch.bfloat16 \
+            else bound
+        assert _rel(g, w) < leaf_bound, (arch, path)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_350m"])
+def test_full_depth_decode_departs_as_the_reference(arch, rng):
+    """The SSM families at their full depth (38 and 24 layers; d_model cut
+    to 64, vocabulary to 512), float32: the port's forward within 1e-3 of
+    the reference's (float32 rounding differences grow with depth: xLSTM's
+    24 layers of exponential gates reach 1.2e-4), its teacher-forced decode
+    within 2e-2 (the Mamba2 conv window stays bfloat16, and a rounding of
+    it that differs grows the same way),
+    and the port's decode-against-forward gap within 2e-2 of the
+    reference's own. At this depth the reference's zamba2 decode parts from
+    its forward by about 0.1 (the bfloat16 conv window, ``ssm.py:167``), so
+    the 2e-2 bound of ``test_decode_matches_forward`` holds at smoke depth
+    only, in both packages."""
+    kw = dict(n_layers=RC.get_config(arch).n_layers, d_model=64,
+              vocab_size=512, capacity_factor=16.0)
+    rcfg = dataclasses.replace(RC.get_config(arch), dtype=jnp.float32, **kw)
+    tcfg = dataclasses.replace(TC.get_config(arch), dtype=torch.float32,
+                               **kw)
+    rparams = _init(rcfg)
+    tparams = params_from_numpy(tcfg, _np(rparams), "cpu")
+    tok = _batch(rcfg, rng)["tokens"]
+    B, S = tok.shape
+    want, _, _, want_dec, _ = _reference_run(
+        rcfg, rparams, {"tokens": jnp.asarray(tok)}, tok, jnp.asarray(tok))
+    want_dec = jnp.moveaxis(want_dec[:, :, -1], 0, 1)
+    tb = _t(tok)
+    got, _ = TM.forward(tparams, tcfg, {"tokens": tb})
+    cache = TM.init_cache(tcfg, B, S, "cpu")
+    outs = []
+    for i in range(S):
+        lg, cache = TM.decode_step(tparams, tcfg, cache,
+                                   {"tokens": tb[:, i:i + 1]}, i)
+        outs.append(lg[:, -1])
+    dec = torch.stack(outs, dim=1)
+    assert _rel(got, want) < 1e-3
+    assert _rel(dec, want_dec) < 2e-2
+    gap, want_gap = _rel(dec, got), _rel(want_dec, want)
+    assert abs(gap - want_gap) < 2e-2, (arch, gap, want_gap)
 
 
 @pytest.mark.parametrize("arch", [a for a in PORTED if a != "llava_next_34b"])

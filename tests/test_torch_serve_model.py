@@ -1,17 +1,18 @@
 """The port's model-serving launcher (``repro_torch.launch.serve_model``)
 against the reference's (``repro.launch.serve_model``) on the CPU.
 
-* ``main`` runs every ported smoke arch with ``--device cpu``, and raises
+* ``main`` runs every smoke arch with ``--device cpu``, and raises
   without a card unless asked for the CPU.
 * With the reference's float32 smoke weights carried across, the port's
   prefill + greedy loop (``generate``) gives the same ids as the
   reference's loop over ``repro.models.model.decode_step``.
 * Greedy decode argmaxes over the padded-vocab columns in both packages
   (ROADMAP.md C5): ids at or above ``vocab_size`` come out of both alike.
-* Every full attention-family config builds on the meta device with the
-  leaf shapes and dtypes of ``jax.eval_shape`` of the reference's
-  ``init_params``, and the same parameter counts.
-* The SSM families raise ``NotImplementedError``.
+* Every full config (the SSM families' two-level and pair stacks
+  included) builds on the meta device with the leaf shapes and dtypes of
+  ``jax.eval_shape`` of the reference's ``init_params``, and the same
+  parameter counts.
+* An unknown family raises ``ValueError``.
 """
 import dataclasses
 
@@ -29,9 +30,7 @@ from repro_torch.launch import serve_model
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 
-PORTED = [a for a in TC.ARCHS
-          if TC.get_smoke_config(a).family in TM.ATTENTION_FAMILIES]
-SSM = [a for a in TC.ARCHS if a not in PORTED]
+PORTED = list(TC.ARCHS)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -103,7 +102,8 @@ def _both_loops(arch, scale_padded_head=0.0, B=4, P=32, G=16, seed=0):
     return rcfg, got, want
 
 
-@pytest.mark.parametrize("arch", ["qwen2_1p5b", "granite_moe_3b_a800m"])
+@pytest.mark.parametrize("arch", ["qwen2_1p5b", "granite_moe_3b_a800m",
+                                  "zamba2_1p2b", "xlstm_350m"])
 def test_generated_ids_equal_the_reference(arch):
     _, got, want = _both_loops(arch)
     np.testing.assert_array_equal(got, want)
@@ -146,15 +146,12 @@ def test_full_config_meta_params_match_reference_shapes(arch):
         assert TM.active_param_count(tcfg, params) == n_ref
 
 
-@pytest.mark.parametrize("arch", SSM)
-def test_ssm_families_raise_not_implemented(arch):
-    cfg = TC.get_smoke_config(arch)
-    assert cfg.family in ("hybrid_mamba", "xlstm")
+def test_unknown_family_raises_value_error():
+    cfg = dataclasses.replace(TC.get_smoke_config("qwen2_1p5b"),
+                              family="rnn")
     for call in (lambda: TM.init_params(cfg, device="cpu"),
                  lambda: TM.init_cache(cfg, 2, 8, "cpu"),
                  lambda: TM.forward(None, cfg, {}),
-                 lambda: TM.decode_step(None, cfg, {}, {}, 0),
-                 lambda: serve_model.main(["--arch", arch, "--smoke",
-                                           "--device", "cpu"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A16"):
+                 lambda: TM.decode_step(None, cfg, {}, {}, 0)):
+        with pytest.raises(ValueError, match="rnn"):
             call()

@@ -23,6 +23,7 @@ drain thread outlives its test and feeds a later test's H2D listener.
 """
 import threading
 import types
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -327,7 +328,9 @@ def test_hot_partition_does_zero_device_put(servers):
             srv.submit(_mk_agg(P, pt))
             srv.step()
             cold = len(calls)
-            assert cold == len(pt.partitions)  # first pass moves them all
+            # first pass moves them all
+            assert cold == len(pt.partitions), (P.name, cold,
+                                                len(pt.partitions))
             # different shape, same partitions: ALL resident, zero copies
             t2 = srv.submit(_mk_groupby(P, pt))
             srv.step()
@@ -335,15 +338,76 @@ def test_hot_partition_does_zero_device_put(servers):
             # ranked queries ride the LRU too (solo execution path)
             t3 = srv.submit(_mk_ranked(P, pt))
             srv.step()
-        assert after2 == len(calls) == cold
-        assert t2.stats["lru_hits"] == t3.stats["lru_hits"] == len(pt.partitions)
-        assert t2.stats["transferred"] == 0
+        counts = (P.name, cold, after2, len(calls), len(pt.partitions))
+        assert after2 == len(calls) == cold, counts
+        assert t2.stats["lru_hits"] == t3.stats["lru_hits"] == \
+            len(pt.partitions), (counts, t2.stats, t3.stats)
+        assert t2.stats["transferred"] == 0, (counts, t2.stats)
         return {"transfers": len(calls), "t2": _attribution(t2),
                 "t3": {k: t3.stats[k] for k in ("lru_hits", "transferred",
                                                 "executed")},
                 "counters": _counters(srv)}
 
     _both(scenario)
+
+
+class _LazyFuture(Future):
+    """A future whose work runs only when it is waited for: a ring worker
+    that has not yet picked the copy up when the head re-check comes."""
+
+    def __init__(self, fn, args):
+        super().__init__()
+        self._call = (fn, args)
+
+    def _run(self):
+        if not self.done() and self.set_running_or_notify_cancel():
+            fn, args = self._call
+            try:
+                self.set_result(fn(*args))
+            except BaseException as exc:  # noqa: BLE001 - handed on
+                self.set_exception(exc)
+
+    def result(self, timeout=None):
+        self._run()
+        return super().result(timeout)
+
+    def exception(self, timeout=None):
+        self._run()
+        return super().exception(timeout)
+
+
+class _LazyPool:
+    def __init__(self, max_workers=1):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args):
+        return _LazyFuture(fn, args)
+
+
+def test_ranked_speculation_does_not_depend_on_worker_timing(servers,
+                                                             monkeypatch):
+    """ROADMAP.md C7: a speculative fetch pruned at the ring's head runs
+    on and is waited for when the pass ends, never cancelled, so the
+    ranked query rides the LRU once a partition however late the ring's
+    worker picks the fetch up (here: never before it is waited for)."""
+    pt = _mixed_table(PORT)
+    srv = servers(PORT, pt, start=False)
+    srv.submit(_mk_agg(PORT, pt))
+    srv.step()  # every partition resident
+    solo = _payload(_mk_ranked(PORT, pt).run())
+    monkeypatch.setattr(stream, "ThreadPoolExecutor", _LazyPool)
+    t3 = srv.submit(_mk_ranked(PORT, pt))
+    srv.step()
+    assert t3.stats["lru_hits"] == len(pt.partitions), t3.stats
+    assert t3.stats["executed"] == len(pt.partitions) - 1
+    assert t3.stats["prefetch_wasted"] == 1
+    _assert_same(_payload(srv.result(t3, timeout=0)), solo, PORT.name)
 
 
 def test_lru_eviction_respects_byte_budget(servers):

@@ -24,6 +24,15 @@ _NP_OF_TORCH = {
 }
 
 CPU = torch.device("cpu")
+
+# Torch's CPU ops run on one intra-op thread in every test process that
+# imports this module (pytest-xdist workers import every test module).
+# With a thread a core in each of several worker processes the threads
+# oversubscribe the cores, and on the twins' small tensors they spin: six
+# concurrent copies of a slice of tests/test_torch_train.py took 250 s
+# each, and 10 s on one thread each. Results compare within tolerances
+# that do not depend on the reduction order a thread count picks.
+torch.set_num_threads(1)
 I32MAX = np.iinfo(np.int32).max
 I32MIN = np.iinfo(np.int32).min
 

@@ -5,6 +5,8 @@
     python3 chip_smoke.py --sf 0.01  # a quick rehearsal at a small scale
     python3 chip_smoke.py --models   # only the model phase (step 8)
     python3 chip_smoke.py --train    # only the training phase (step 9)
+    python3 chip_smoke.py --mesh     # only the mesh phase (step 10)
+    python3 chip_smoke.py --examples # only the examples phase (step 11)
 
 What it does, in order, failing (non-zero exit, no result line) on the
 first error:
@@ -162,11 +164,34 @@ first error:
    bit. One JSON line: step ms, tokens/s, peak memory, the step's idle
    share and launches, the checkpoint's bytes and seconds, the data
    path's ms and launches.
-10. A ``launches`` line (per query phase: launches, and a tally by shape
+10. Mesh phase (``launch/mesh.py``, ``distributed/sharding.py``,
+   ``compression.allreduce_topk``, the elastic restore,
+   ``launch/dryrun.py``): a world of one on NCCL through an in-process
+   store and its (1, 1) ``DeviceMesh`` on the card (gloo or the CPU fail
+   the run); qwen2-1.5b's smoke params laid out by ``named_shardings`` as
+   DTensors and gathered back (``full_tensor``) bit for bit;
+   ``allreduce_topk`` over the mesh's data group on a float32 leaf of the
+   full width (one layer's ``mlp/w_up``, 1536 x 8960) and a bfloat16 leaf,
+   each of distinct magnitudes, equal bit for bit to the single-device
+   projection (``compression._topk_project``), with its ms a call; a
+   checkpoint restored onto the mesh (``restore(..., shardings=)``) bit
+   for bit; then one dry-run record of qwen2-1.5b x decode_32k on the
+   (16, 16) shape-only mesh (argument bytes a device, one device's peak
+   against the card's memory, FLOPs and bytes of the traced step). Two
+   JSON lines.
+11. Examples phase: the five twins of ``examples/`` (``torch_quickstart``,
+   ``torch_production_star``, ``torch_serving_demo``,
+   ``torch_serve_batched``, ``torch_train_lm``) at their reference sizes on
+   the card, in this process, each asserting its own oracles; each one's
+   output echoed, its line of OK required, and one JSON line of its wall
+   time and kernel launches (zeroed just before it, read just after). The
+   run fails if ``bucketize_kernel``, ``segment_sum_kernel``,
+   ``unpack_kernel`` or ``topk_kernel`` was launched by none of them.
+12. A ``launches`` line (per query phase: launches, and a tally by shape
    class, ``_build.SHAPES``), a ``{"kernels": [...]}`` summary line whose
-   ``launches`` sum every phase's, the training data path's included,
-   then as the last line ``{"ok": true, "device": {"platform": "gpu",
-   ...}}``.
+   ``launches`` sum every phase's, the training data path's and the
+   examples' included, then as the last line ``{"ok": true, "device":
+   {"platform": "gpu", ...}}``.
 
 Other modes, for measurements (they stop early and print no result
 line): ``--kernel-bench`` times every kernel at the main path's shapes on
@@ -176,6 +201,7 @@ runs of 1-4 rows with gaps over 2^23 rows; ``unpack_kernel`` and
 classes, the latter on Q17's sorted, code-0 padded run values and on
 random ones), per launch, back to back and on the device; ``--models``
 runs only the model phase; ``--train`` only the training phase;
+``--mesh`` only the mesh phase; ``--examples`` only the examples phase;
 ``--queries Q3,Q17`` runs only those queries, resident
 and streamed (with ``--profile``, their profiles); ``--src DIR`` imports
 ``repro_torch`` from another checkout's ``src`` (its kernels build
@@ -267,6 +293,23 @@ TRAIN_DOCS, TRAIN_DOC_LEN = 50_000, 256
 # decoder is not on it: decode_mask of an RLE mask is a coverage sweep
 # (scatter + cumsum) in both packages, and the tokens are Plain.
 TRAIN_KERNELS = ("bucketize_kernel", "segment_sum_kernel")
+# the mesh phase: a world of one on NCCL, qwen2-1.5b's smoke params laid
+# out as DTensors, the compressed all-reduce on a float32 leaf of the full
+# width (one layer's mlp/w_up) and a bfloat16 leaf, and one dry-run cell
+MESH_ARCH = "qwen2_1p5b"
+MESH_TOPK_FRAC = 0.01
+MESH_F32_LEAF = (1536, 8960)
+MESH_BF16_LEAF = (128, 128)
+MESH_CELL = ("qwen2_1p5b", "decode_32k")
+# the examples phase: the five twins of examples/ at their reference sizes,
+# each ending in its line of OK; the kernels their runs must launch
+EXAMPLES = {"torch_quickstart": "quickstart OK",
+            "torch_production_star": "production star example OK",
+            "torch_serving_demo": "serving_demo OK",
+            "torch_serve_batched": "serve_batched example OK",
+            "torch_train_lm": "train_lm example OK"}
+EXAMPLE_KERNELS = ("bucketize_kernel", "segment_sum_kernel", "unpack_kernel",
+                   "topk_kernel")
 # bucketize_count_kernel's edge cases: boundary counts (just above the
 # shared-memory route, Q17's semi-join, Q3's join probe) and query patterns
 COUNT_NB = (58_113, 97_532, 1 << 23)
@@ -2929,6 +2972,193 @@ def train_phase(dev, seed, card):
     return rec["train"], launches
 
 
+# ---------------------------------------------------------------------------
+# Mesh phase: the sharding and dry-run layer on the card
+# ---------------------------------------------------------------------------
+
+
+def distinct_leaf(shape, dtype, dev, seed):
+    """A leaf whose magnitudes are all distinct, signs random
+    (``torch.topk`` leaves the order of ties unspecified). float32: a
+    permutation of 1..n times 2^-20; bfloat16: n consecutive positive bit
+    patterns from 0x3000 (n below 0x4F80)."""
+    import torch
+    n = int(np.prod(shape))
+    gen = torch.Generator().manual_seed(seed)
+    if dtype == torch.bfloat16:
+        mag = torch.arange(0x3000, 0x3000 + n, dtype=torch.int16).view(
+            torch.bfloat16)
+        mag = mag[torch.randperm(n, generator=gen)]
+    else:
+        mag = (torch.randperm(n, generator=gen) + 1).float() * 2.0 ** -20
+    sign = torch.randint(0, 2, (n,), generator=gen).to(dtype) * 2 - 1
+    return (mag * sign).reshape(shape).to(dev)
+
+
+def mesh_phase(dev, seed, card):
+    """``launch.mesh``, ``distributed.sharding``, ``allreduce_topk``, the
+    elastic restore and ``launch.dryrun`` on the card: a (1, 1) mesh of a
+    world of one on NCCL (on the card: no gloo, no CPU; gloo only where
+    ``dev`` is the CPU, for a rehearsal), ``MESH_ARCH``'s smoke params
+    laid out by ``named_shardings`` as DTensors and gathered back bit for
+    bit, ``allreduce_topk`` over the mesh's data group equal to the plain
+    single-device form (``compression._topk_project``) on a float32 and a
+    bfloat16 leaf, a checkpoint restored onto the mesh bit for bit, and one
+    dry-run record of ``MESH_CELL``. Prints two JSON lines."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import CheckpointManager, pytree
+    t0 = time.perf_counter()
+    rec = {}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    mesh = make_host_mesh(dev)
+    try:
+        if dist.get_backend() != backend or mesh.device_type != dev.type:
+            raise AssertionError(f"mesh phase: backend "
+                                 f"{dist.get_backend()} on "
+                                 f"{mesh.device_type}, not {backend} on "
+                                 f"{dev.type}")
+        rec["mesh"] = {"shape": list(mesh.shape),
+                       "dims": list(mesh.mesh_dim_names),
+                       "backend": dist.get_backend(),
+                       "world": dist.get_world_size(),
+                       "setup_s": time.perf_counter() - t0}
+
+        def check_leaves(name, got_tree, want_tree, shardings):
+            flat = dict(pytree.named_leaves(shardings,
+                                            leaf_types=(Sh.NamedSharding,)))
+            got, want = (pytree.named_leaves(got_tree),
+                         pytree.named_leaves(want_tree))
+            if [n for n, _ in got] != [n for n, _ in want]:
+                raise AssertionError(f"{name}: leaf names differ")
+            for (n, a), (_, b) in zip(got, want):
+                if not (isinstance(a, DTensor) and a.device_mesh == mesh
+                        and a.device.type == dev.type
+                        and tuple(a.placements) == flat[n].placements
+                        and torch.equal(_tensor_bits(a.full_tensor()),
+                                        _tensor_bits(b))):
+                    raise AssertionError(f"{name}: leaf {n} is not the "
+                                         f"same bits laid out as its spec")
+            return len(got)
+
+        cfg = configs.get_smoke_config(MESH_ARCH)
+        params = M.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        t1 = time.perf_counter()
+        shardings = Sh.named_shardings(params, mesh)
+        laid = Sh.distribute(params, shardings)
+        torch.cuda.synchronize()
+        n_leaves = check_leaves("distribute", laid, params, shardings)
+        rec["distribute"] = {"arch": MESH_ARCH, "leaves": n_leaves,
+                             "s": time.perf_counter() - t1,
+                             "bit_exact": True}
+
+        group = mesh.get_group("data")
+        rec["allreduce_topk"] = []
+        for i, (shape, dtype) in enumerate(((MESH_F32_LEAF, torch.float32),
+                                            (MESH_BF16_LEAF,
+                                             torch.bfloat16))):
+            g = distinct_leaf(shape, dtype, dev, seed + i)
+            got = C.allreduce_topk(g, group, MESH_TOPK_FRAC)
+            want = C._topk_project(g.float(), MESH_TOPK_FRAC).to(dtype)
+            if not (got.dtype == dtype and got.shape == g.shape
+                    and torch.equal(_tensor_bits(got), _tensor_bits(want))):
+                raise AssertionError(f"allreduce_topk {dtype}: differs from "
+                                     f"the single-device projection")
+            ms = time_ms(lambda: C.allreduce_topk(g, group, MESH_TOPK_FRAC))
+            rec["allreduce_topk"].append({
+                "dtype": str(dtype).replace("torch.", ""),
+                "shape": list(shape), "frac": MESH_TOPK_FRAC,
+                "k": max(1, int(round(g.numel() * MESH_TOPK_FRAC))),
+                "ms": ms, "bit_exact": True})
+
+        ckdir = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        CheckpointManager(str(ckdir)).save(5, params, blocking=True)
+        like = M.init_params(cfg, device="meta")
+        t1 = time.perf_counter()
+        restored, meta = CheckpointManager(str(ckdir)).restore(
+            like, shardings=Sh.named_shardings(like, mesh))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        if meta["step"] != 5:
+            raise AssertionError("elastic restore: wrong step")
+        check_leaves("elastic restore", restored, params,
+                     Sh.named_shardings(like, mesh))
+        shutil.rmtree(ckdir, ignore_errors=True)
+        rec["elastic_restore"] = {"leaves": n_leaves, "s": restore_s,
+                                  "bit_exact": True}
+    finally:
+        dist.destroy_process_group()
+
+    arch, shape = MESH_CELL
+    cell = dryrun.run_cell(arch, shape, multi_pod=False)
+    if cell["status"] != "ok":
+        raise AssertionError(f"dry run {arch} x {shape}: {cell}")
+    rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_phase": rec, "card": card}), flush=True)
+    print(json.dumps({"dryrun": cell, "card": card}), flush=True)
+    return rec, cell
+
+
+# ---------------------------------------------------------------------------
+# Examples phase: the five twins of examples/ at their reference sizes
+# ---------------------------------------------------------------------------
+
+
+def examples_phase(card):
+    """Each twin in ``examples/`` (``EXAMPLES``) at its reference size on
+    the card, in this process: its output echoed, its last line of OK
+    required, its wall time and kernel launches (zeroed just before it,
+    read just after) on one JSON line. The run fails if a kernel of
+    ``EXAMPLE_KERNELS`` was launched by none of them. Returns (records,
+    the launches summed over the twins)."""
+    import contextlib
+    import importlib.util
+    import io
+    import torch
+    from repro_torch.kernels import _build
+    root = Path(__file__).resolve().parent / "examples"
+    total = {k: 0 for k in _build.KERNELS}
+    recs = []
+    for name, ok_line in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            name, root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        text = buf.getvalue()
+        print(text, end="", flush=True)
+        if ok_line not in text.splitlines():
+            raise AssertionError(f"{name}: no {ok_line!r} line")
+        for k, v in launches.items():
+            total[k] += v
+        rec = {"example": name, "wall_s": wall,
+               "launches": {k: v for k, v in launches.items() if v}}
+        recs.append(rec)
+        print(json.dumps({**rec, "card": card}), flush=True)
+    missing = [k for k in EXAMPLE_KERNELS if total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the examples: "
+                             f"{missing}")
+    return recs, total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sf", type=float, default=10.0,
@@ -2960,6 +3190,13 @@ def main(argv=None) -> int:
     parser.add_argument("--train", action="store_true",
                         help="only run the training phase (the engine-backed "
                         "data path and full-width train steps), and stop")
+    parser.add_argument("--mesh", action="store_true",
+                        help="only run the mesh phase (sharding, the "
+                        "compressed all-reduce, the elastic restore and a "
+                        "dry-run cell on NCCL), and stop")
+    parser.add_argument("--examples", action="store_true",
+                        help="only run the examples phase (the five twins "
+                        "of examples/ at their reference sizes), and stop")
     parser.add_argument("--src", type=Path, default=None,
                         help="import repro_torch from this src directory "
                         "(another checkout's: its kernels build there)")
@@ -3002,6 +3239,14 @@ def main(argv=None) -> int:
         return 0
     if args.train:
         train_phase(dev, args.seed, card)
+        print(card, flush=True)
+        return 0
+    if args.mesh:
+        mesh_phase(dev, args.seed, card)
+        print(card, flush=True)
+        return 0
+    if args.examples:
+        examples_phase(card)
         print(card, flush=True)
         return 0
     if args.ordering:
@@ -3089,8 +3334,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     models = model_phase(dev, args.seed, card)
     trained, train_launches = train_phase(dev, args.seed, card)
-    for row in rows:  # the training data path is a path of the run too
-        row["launches"] += train_launches[row["name"]]
+    meshed, cell = mesh_phase(dev, args.seed, card)
+    examples, example_launches = examples_phase(card)
+    for row in rows:  # the training data path and the examples are paths
+        row["launches"] += (train_launches[row["name"]]
+                            + example_launches[row["name"]])
     print(json.dumps({"card": card, "queries": {
         k: {"warm_median_ms": v["warm_median_ms"], "ingest_s": v["ingest_s"]}
         for k, v in per_query.items()}, "out_of_core": {
@@ -3117,7 +3365,13 @@ def main(argv=None) -> int:
                                        "decode_vs_forward_rel_err")}
         for r in models}, "training": {
         k: trained[k] for k in ("step_ms_median_last5", "tok_s",
-                                "max_memory_allocated_MiB", "losses")}}),
+                                "max_memory_allocated_MiB", "losses")},
+        "mesh": {"phase_s": meshed["phase_s"],
+                 "allreduce_topk_ms": [r["ms"]
+                                       for r in meshed["allreduce_topk"]],
+                 "dryrun": {k: cell[k] for k in ("arch", "shape", "memory",
+                                                 "fits_hbm")}},
+        "examples": {r["example"]: r["wall_s"] for r in examples}}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,2 +1,3 @@
-"""Distributed-training pieces of the port (one device): gradient
-compression (``compression``)."""
+"""Distributed-training pieces of the port: gradient compression and the
+compressed all-reduce over a process group (``compression``), and the
+sharding rules with their DTensor layouts (``sharding``)."""

@@ -18,9 +18,13 @@ Format: ``arrays.npz`` holds ``leaf_<i>`` in the reference's flatten order
 dtype in the manifest. So each package restores the other's checkpoints.
 bfloat16 is read back through ``torch.int16`` and ``.view(torch.bfloat16)``.
 
-The reference's elastic restore re-shards onto a mesh (``shardings=``);
-its one-device meaning here is ``restore(like, step, device=)``: the
-leaves land on ``device`` (the device of ``like``'s leaves when None).
+**Elastic restore**: arrays are saved unsharded (gathered), so a
+checkpoint restores onto whatever layout the relaunch defines.
+``restore(like, step, device=)`` puts the leaves on one device (the device
+of ``like``'s leaves when None); ``restore(..., shardings=)`` takes a
+matching tree of ``distributed.sharding.NamedSharding`` (a ``DeviceMesh``
+and placements, ``sharding.named_shardings``) and returns each leaf as a
+DTensor with those placements on that mesh's device type, the same bits.
 """
 from __future__ import annotations
 
@@ -147,13 +151,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: Optional[int] = None, device=None):
+    def restore(self, like, step: Optional[int] = None, device=None,
+                shardings=None):
         """Restore into the structure of ``like`` (its leaves give the
         shapes and dtypes; meta tensors do). Returns (tree, manifest), or
         None when there is no checkpoint. The leaves land on ``device``, or
-        each on its ``like`` leaf's device (a meta leaf: the CPU); a
-        ``ParamTree`` comes back a ``ParamTree`` whose leaves require grad
-        as ``like``'s do."""
+        each on its ``like`` leaf's device (a meta leaf: the CPU); with
+        ``shardings`` (a tree of ``NamedSharding`` matching ``like``) each
+        leaf is a DTensor laid out by its ``NamedSharding`` (the elastic
+        re-shard path). A ``ParamTree`` comes back a ``ParamTree`` whose
+        leaves require grad as ``like``'s do."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
@@ -169,6 +176,13 @@ class CheckpointManager:
                 f"leaves, target has {len(names)}; first diff: "
                 f"{next((a, b) for a, b in zip(meta['names'] + ['<end>'], names + ['<end>']) if a != b)}")
         saved_dtypes = meta.get("dtypes", [None] * len(named))
+        layout = {}
+        if shardings is not None:
+            from repro_torch.distributed.sharding import NamedSharding
+            layout = dict(pytree.named_leaves(
+                shardings, leaf_types=(NamedSharding,)))
+            if sorted(layout) != sorted(names):
+                raise ValueError("shardings do not match the restore target")
         loaded = {}
         for i, (name, lk) in enumerate(named):
             t = _from_host(data[f"leaf_{i}"], saved_dtypes[i])
@@ -177,11 +191,18 @@ class CheckpointManager:
                                  f"{tuple(lk.shape)}")
             want = lk.dtype if isinstance(lk, torch.Tensor) else \
                 _TORCH_DTYPES[str(lk.dtype)]
+            sh = layout.get(name)
             dev = device
-            if dev is None:
+            if sh is not None:
+                dev = sh.mesh.device_type
+            elif dev is None:
                 dev = lk.device if isinstance(lk, torch.Tensor) \
                     and lk.device.type != "meta" else "cpu"
-            loaded[name] = t.to(device=dev, dtype=want)
+            t = t.to(device=dev, dtype=want)
+            if sh is not None:
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(t, sh.mesh, sh.placements)
+            loaded[name] = t
         return _rebuild(like, loaded, ()), meta
 
 

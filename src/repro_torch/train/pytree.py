@@ -35,14 +35,16 @@ def _children(node) -> List[Tuple[str, Any]]:
     raise TypeError(f"not a tree node: {type(node).__name__}")
 
 
-def named_leaves(tree) -> List[Tuple[str, Any]]:
-    """(name, leaf) pairs in the reference's flatten order."""
+def named_leaves(tree, leaf_types: Tuple[type, ...] = ()
+                 ) -> List[Tuple[str, Any]]:
+    """(name, leaf) pairs in the reference's flatten order; instances of
+    ``leaf_types`` count as leaves too (a tree of shardings)."""
     out: List[Tuple[str, Any]] = []
 
     def walk(node, path):
         if node is None:
             return
-        if _is_leaf(node):
+        if _is_leaf(node) or isinstance(node, leaf_types):
             out.append(("/".join(path), node))
             return
         for key, child in _children(node):

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, nor chip_smoke.py,
-imports JAX, the JAX package or the benchmarks; importing the port loads
+nor the example twins (examples/torch_*.py), imports JAX, the JAX package
+or the benchmarks; importing the port loads
 no JAX; entry points refuse to run without a CUDA device unless the caller
 asks for the CPU; chip_smoke.py fails without a card or without the repo."""
 import ast
@@ -19,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path):

@@ -175,10 +175,19 @@ first error:
    each of distinct magnitudes, equal bit for bit to the single-device
    projection (``compression._topk_project``), with its ms a call; a
    checkpoint restored onto the mesh (``restore(..., shardings=)``) bit
-   for bit; then one dry-run record of qwen2-1.5b x decode_32k on the
-   (16, 16) shape-only mesh (argument bytes a device, one device's peak
-   against the card's memory, FLOPs and bytes of the traced step). Two
-   JSON lines.
+   for bit; (a) one MoE layer of qwen3-moe at full width (4.8 GB of bf16
+   experts, 4 x 256 tokens) through the expert-parallel body
+   (``layers.moe_on_mesh``: its all-gather and both all-to-alls on the
+   mesh's NCCL groups) against the local ``moe``: the slots equal, y
+   within ``MESH_EP_BOUND``, ms a call of each in turns; (b)
+   granite-moe-3b-a800m's full-width forward on DTensor params and batch
+   (``MESH_DT_AXES``) against the plain forward within ``MESH_DT_BOUND``,
+   and a greedy ``decode_step`` loop on a DTensor cache with the same ids
+   and logits, wall s of each; then (c) one dry-run record of qwen2-1.5b x
+   decode_32k on the (16, 16) shape-only mesh (argument bytes a device,
+   one device's peak against the card's memory, FLOPs and bytes of the
+   traced step), which must equal ``MESH_CELL_RECORD`` but for its
+   timings. Four JSON lines.
 11. Examples phase: the five twins of ``examples/`` (``torch_quickstart``,
    ``torch_production_star``, ``torch_serving_demo``,
    ``torch_serve_batched``, ``torch_train_lm``) at their reference sizes on
@@ -301,6 +310,48 @@ MESH_TOPK_FRAC = 0.01
 MESH_F32_LEAF = (1536, 8960)
 MESH_BF16_LEAF = (128, 128)
 MESH_CELL = ("qwen2_1p5b", "decode_32k")
+# the dry-run record of MESH_CELL without its timings, as the mesh phase
+# printed it before the model's mesh dataflow was ported: a meta trace has
+# no DeviceMesh, so nothing of that dataflow may change it
+MESH_CELL_RECORD = {
+    "arch": "qwen2_1p5b", "shape": "decode_32k", "mesh": "single",
+    "n_devices": 256, "status": "ok", "aten_ops": 6549,
+    "memory": {"argument_bytes_per_device": 482111012,
+               "argument_bytes_one_device": 123346513412,
+               "step_live_bytes_one_device": 2452389896,
+               "peak_estimate_bytes_one_device": 125798903308},
+    "cost": {"flops_one_device": 1187012374784.0,
+             "bytes_accessed_one_device": 417146668304.0},
+    "collectives": {
+        "bytes_by_type": {k: 0.0 for k in (
+            "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+            "collective-permute", "collective-broadcast")},
+        "count_by_type": {k: 0 for k in (
+            "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+            "collective-permute", "collective-broadcast")},
+        "total_bytes": 0.0},
+    "model_flops_global": 395190861824.0, "act_seq_axis": None,
+    "remat": "none",
+    "hbm": {"bytes": 85017493504, "source": "NVIDIA H100 80GB HBM3"},
+    "fits_hbm": False}
+CELL_TIMINGS = ("build_s", "trace_s", "parse_s")
+# (a) one MoE layer of qwen3-moe at full width (d_model 4,096, 128 experts,
+# d_ff 1,536, top 8, bf16: 4.8 GB of expert weights) through the
+# expert-parallel body on the mesh, against the local moe on the card
+MESH_EP_ARCH = "qwen3_moe_235b_a22b"
+MESH_EP_BATCH, MESH_EP_SEQ = 4, 256
+# the EP body's experts read their queues from the all-to-all's contiguous
+# buffer, the local path's from a view of the dispatch buffer, so cuBLAS
+# may take another kernel: bf16 outputs may differ by a rounding of the
+# expert products (one bfloat16 ulp, 2^-7 relative, of the largest)
+MESH_EP_BOUND = 2.0 ** -7
+# (b) granite-moe's full-width forward and a greedy decode on DTensor params
+# and a DTensor batch, against the plain ones on the card
+MESH_DT_ARCH = "granite_moe_3b_a800m"
+MESH_DT_AXES = {"act_batch_axes": ("data",), "moe_expert_axis": "model",
+                "vocab_axis": "model"}
+MESH_DT_PROMPT, MESH_DT_GEN = 8, 4
+MESH_DT_BOUND = 1e-2  # logits' rel err, DTensor against plain (bf16)
 # the examples phase: the five twins of examples/ at their reference sizes,
 # each ending in its line of OK; the kernels their runs must launch
 EXAMPLES = {"torch_quickstart": "quickstart OK",
@@ -2995,16 +3046,194 @@ def distinct_leaf(shape, dtype, dev, seed):
     return (mag * sign).reshape(shape).to(dev)
 
 
+def _cell_fields(rec):
+    """A dry-run record without its timings."""
+    if isinstance(rec, dict):
+        return {k: _cell_fields(v) for k, v in rec.items()
+                if k not in CELL_TIMINGS}
+    return rec
+
+
+def mesh_moe_check(mesh, cfg, dev, seed, batch, seq):
+    """(a) ``cfg``'s MoE layer (random bf16 weights and input from
+    ``seed``) through the expert-parallel body (``moe_on_mesh(...,
+    ep=True)``: the FSDP all-gather and both all-to-alls over ``mesh``'s
+    groups) against the local ``moe`` on the same card: the slots must be
+    equal, y within ``MESH_EP_BOUND`` of its largest value; ms a call of
+    each, taken in turns."""
+    import torch
+    from repro_torch.launch.mesh import activate_mesh, axis_group
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = L.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype,
+                   dev, n_padded=cfg.padded_experts)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen,
+                    device=dev).to(cfg.dtype)
+    e_pad = p["w_gate"].shape[0]
+    sm = L.moe_on_mesh(mesh, True, cfg.top_k, cfg.capacity_factor, e_pad,
+                       ("data",), "model")
+    args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+
+    def ep():
+        with activate_mesh(mesh):
+            return sm(*args)
+
+    def local():
+        return L._moe(p, x, cfg.top_k, cfg.capacity_factor)
+
+    with torch.inference_mode():
+        y, slot, stats = ep()
+        y1, aux1, slot1 = local()
+        aux = L._aux_from_stats(stats, batch * seq, cfg.top_k)
+        if not torch.equal(slot, slot1):
+            raise AssertionError(f"{cfg.name} EP body: slots differ")
+        err = float((y.float() - y1.float()).abs().max())
+        top = float(y1.float().abs().max())
+        if not (torch.isfinite(y).all() and err <= MESH_EP_BOUND * top):
+            raise AssertionError(f"{cfg.name} EP body: y off by {err} "
+                                 f"(largest {top})")
+        ep_ms, local_ms = time_turns_ms(ep, local, iters=10)
+        with activate_mesh(mesh):
+            backends = {a: dist_backend(axis_group(a))
+                        for a in ("data", "model")}
+    weights = sum(p[k].numel() * p[k].element_size()
+                  for k in ("w_gate", "w_up", "w_down"))
+    capacity = max(1, int(seq * cfg.top_k * cfg.capacity_factor
+                          / cfg.n_experts))
+    return {"arch": cfg.name, "d_model": cfg.d_model, "experts": e_pad,
+            "d_ff": cfg.d_ff, "top_k": cfg.top_k, "batch": batch,
+            "seq": seq, "dtype": str(cfg.dtype).replace("torch.", ""),
+            "expert_weight_bytes": weights, "capacity": capacity,
+            "kept": int((slot < e_pad * capacity).sum()),
+            "entries": int(slot.numel()),
+            "slots_equal": True, "y_bit_equal": bool(torch.equal(y, y1)),
+            "y_max_abs_err": err, "y_max_abs": top,
+            "aux": float(aux), "aux_local": float(aux1),
+            "group_backends": backends, "ep_ms": ep_ms,
+            "local_ms": local_ms}
+
+
+def dist_backend(group) -> str:
+    import torch.distributed as dist
+    return str(dist.get_backend(group))
+
+
+def mesh_model_check(mesh, cfg, dev, seed, batch, prompt, gen_len):
+    """(b) ``cfg`` (random weights from ``seed``) on DTensors: params laid
+    out by ``named_shardings``, the batch by ``batch_shardings``, a cache
+    by ``cache_shardings``, with ``MESH_DT_AXES``; its forward against the
+    plain forward on the card (relative max error below
+    ``MESH_DT_BOUND``) and a greedy ``decode_step`` loop (``prompt``
+    teacher-forced tokens, ``gen_len`` greedy ones) that must give the
+    plain loop's ids, every step's logits within the same bound. Wall s of each, first call and warm. Under
+    ``no_grad`` (a DTensor's views cannot be made in inference mode)."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.launch.mesh import activate_mesh, placements
+    from repro_torch.models import model as M
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    mcfg = dataclasses.replace(cfg, **MESH_DT_AXES)
+    t0 = time.perf_counter()
+    dp = Sh.distribute(params, Sh.named_shardings(params, mesh))
+    torch.cuda.synchronize()
+    distribute_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+
+    def laid(t, spec):
+        return distribute_tensor(t, mesh, placements(spec, mesh))
+
+    dtok = laid(tokens, Sh.batch_spec(mesh, batch))
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def fwd_mesh():
+        with activate_mesh(mesh), torch.no_grad():
+            return M.forward(dp, mcfg, {"tokens": dtok})[0]
+
+    def fwd_plain():
+        with torch.no_grad():
+            return M.forward(params, cfg, {"tokens": tokens})[0]
+
+    got, mesh_first = timed(fwd_mesh)
+    got, mesh_warm = timed(fwd_mesh)
+    want, plain_first = timed(fwd_plain)
+    want, plain_warm = timed(fwd_plain)
+    if not isinstance(got, DTensor):
+        raise AssertionError(f"{cfg.name}: the mesh forward gave no DTensor")
+    rel = rel_err(got.full_tensor(), want)
+    if not rel < MESH_DT_BOUND:
+        raise AssertionError(f"{cfg.name}: DTensor forward rel err {rel}")
+
+    def greedy(p, c, on_mesh):
+        cache = M.init_cache(c, batch, prompt + gen_len, dev)
+        if on_mesh:
+            specs = Sh.cache_shardings(cache, mesh, batch)
+            cache = {k: laid(v, specs[k]) for k, v in cache.items()}
+        ids, logits = [], []
+        with activate_mesh(mesh if on_mesh else None), \
+                torch.no_grad():
+            nxt = tokens[:, :1]
+            for i in range(prompt + gen_len - 1):
+                step = tokens[:, i:i + 1] if i < prompt else nxt
+                lg, _ = M.decode_step(p, c, cache, {"tokens": step}, i)
+                if isinstance(lg, DTensor):
+                    lg = lg.full_tensor()
+                logits.append(lg[:, -1])
+                nxt = lg[:, -1].float().argmax(-1, keepdim=True).to(
+                    torch.int32)
+                if i >= prompt - 1:
+                    ids.append(nxt)
+        return torch.cat(ids, dim=1).cpu(), torch.stack(logits, dim=1)
+
+    (ids, lg), mesh_decode = timed(lambda: greedy(dp, mcfg, True))
+    (ids1, lg1), plain_decode = timed(lambda: greedy(params, cfg, False))
+    decode_rel = rel_err(lg, lg1)
+    if not (torch.equal(ids, ids1) and decode_rel < MESH_DT_BOUND):
+        raise AssertionError(f"{cfg.name}: DTensor greedy ids {ids.tolist()}"
+                             f" (decode logits rel err {decode_rel}) != "
+                             f"plain {ids1.tolist()}")
+    leaf = params["layers"]["moe"]["w_gate"]
+    return {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "batch": batch, "prompt": prompt, "gen": gen_len,
+            "axes": {k: list(v) if isinstance(v, tuple) else v
+                     for k, v in MESH_DT_AXES.items()},
+            "w_gate_placements": [str(q) for q in
+                                  dp["layers"]["moe"]["w_gate"].placements],
+            "weight_bytes": sum(q.numel() * q.element_size()
+                                for q in params.parameters()),
+            "distribute_s": distribute_s,
+            "forward_s": {"dtensor_first": mesh_first,
+                          "dtensor_warm": mesh_warm,
+                          "plain_first": plain_first,
+                          "plain_warm": plain_warm},
+            "logits_rel_err": rel, "bound": MESH_DT_BOUND,
+            "decode_s": {"dtensor": mesh_decode, "plain": plain_decode},
+            "decode_steps": prompt + gen_len - 1,
+            "decode_logits_rel_err": decode_rel, "greedy_ids_equal": True, "greedy_ids_first_seq":
+                ids[0].tolist(), "leaf_dtype": str(leaf.dtype)}
+
+
 def mesh_phase(dev, seed, card):
     """``launch.mesh``, ``distributed.sharding``, ``allreduce_topk``, the
-    elastic restore and ``launch.dryrun`` on the card: a (1, 1) mesh of a
-    world of one on NCCL (on the card: no gloo, no CPU; gloo only where
-    ``dev`` is the CPU, for a rehearsal), ``MESH_ARCH``'s smoke params
-    laid out by ``named_shardings`` as DTensors and gathered back bit for
-    bit, ``allreduce_topk`` over the mesh's data group equal to the plain
-    single-device form (``compression._topk_project``) on a float32 and a
-    bfloat16 leaf, a checkpoint restored onto the mesh bit for bit, and one
-    dry-run record of ``MESH_CELL``. Prints two JSON lines."""
+    elastic restore, the model's mesh dataflow and ``launch.dryrun`` on
+    the card: a (1, 1) mesh of a world of one on NCCL (on the card: no
+    gloo, no CPU; gloo only where ``dev`` is the CPU, for a rehearsal),
+    ``MESH_ARCH``'s smoke params laid out by ``named_shardings`` as
+    DTensors and gathered back bit for bit, ``allreduce_topk`` over the
+    mesh's data group equal to the plain single-device form
+    (``compression._topk_project``) on a float32 and a bfloat16 leaf, a
+    checkpoint restored onto the mesh bit for bit, ``mesh_moe_check`` (a)
+    and ``mesh_model_check`` (b), and one dry-run record of ``MESH_CELL``,
+    which on the card must equal ``MESH_CELL_RECORD`` (c). Prints four
+    JSON lines."""
     import shutil
     import torch
     import torch.distributed as dist
@@ -3096,6 +3325,19 @@ def mesh_phase(dev, seed, card):
         shutil.rmtree(ckdir, ignore_errors=True)
         rec["elastic_restore"] = {"leaves": n_leaves, "s": restore_s,
                                   "bit_exact": True}
+        del params, laid, restored
+        rec["ep_body"] = mesh_moe_check(
+            mesh, configs.get_config(MESH_EP_ARCH), dev, seed,
+            MESH_EP_BATCH, MESH_EP_SEQ)
+        print(json.dumps({"mesh_ep_body": rec["ep_body"], "card": card}),
+              flush=True)
+        torch.cuda.empty_cache()
+        rec["dtensor_model"] = mesh_model_check(
+            mesh, configs.get_config(MESH_DT_ARCH), dev, seed, MODEL_BATCH,
+            MESH_DT_PROMPT, MESH_DT_GEN)
+        print(json.dumps({"mesh_dtensor_model": rec["dtensor_model"],
+                          "card": card}), flush=True)
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -3103,6 +3345,10 @@ def mesh_phase(dev, seed, card):
     cell = dryrun.run_cell(arch, shape, multi_pod=False)
     if cell["status"] != "ok":
         raise AssertionError(f"dry run {arch} x {shape}: {cell}")
+    rec["dryrun_equal_to_pr22"] = _cell_fields(cell) == MESH_CELL_RECORD
+    if dev.type == "cuda" and not rec["dryrun_equal_to_pr22"]:
+        raise AssertionError(f"dry run {arch} x {shape} changed: "
+                             f"{_cell_fields(cell)}")
     rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"mesh_phase": rec, "card": card}), flush=True)
     print(json.dumps({"dryrun": cell, "card": card}), flush=True)

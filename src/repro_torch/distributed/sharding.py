@@ -28,23 +28,11 @@ import math
 import re
 from typing import Any, List, Optional, Tuple
 
-from repro_torch.launch.mesh import axis_sizes, placements
+from repro_torch.launch.mesh import PartitionSpec, axis_sizes, placements
+from repro_torch.models.model import ParamTree
 from repro_torch.train import pytree
 
 log = logging.getLogger(__name__)
-
-
-class PartitionSpec(tuple):
-    """One entry per tensor dim: an axis name, a tuple of them, or None.
-    A one-name tuple becomes the bare name, as jax's spec stores it."""
-
-    def __new__(cls, *parts):
-        return super().__new__(cls, (
-            p[0] if isinstance(p, tuple) and len(p) == 1 else p
-            for p in parts))
-
-    def __repr__(self) -> str:
-        return f"PartitionSpec{tuple.__repr__(self)}"
 
 
 P = PartitionSpec
@@ -178,12 +166,15 @@ def named_shardings(params_shape, mesh):
 
 def distribute(tree, shardings):
     """Each leaf of ``tree`` as a DTensor laid out by the matching
-    ``NamedSharding`` (``torch.distributed.tensor.distribute_tensor``)."""
+    ``NamedSharding`` (``torch.distributed.tensor.distribute_tensor``). A
+    ``ParamTree`` gives a ``ParamTree`` (frozen leaves, as built), so the
+    laid-out parameters enter the model's entry points as they are."""
     from torch.distributed.tensor import distribute_tensor
     flat = dict(pytree.named_leaves(shardings, leaf_types=(NamedSharding,)))
-    return _map_named(
+    out = _map_named(
         lambda name, leaf: distribute_tensor(
             leaf.detach(), flat[name].mesh, flat[name].placements), tree)
+    return ParamTree(out) if isinstance(tree, ParamTree) else out
 
 
 # ---------------------------------------------------------------------------

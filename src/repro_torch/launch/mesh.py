@@ -21,10 +21,13 @@ network): NCCL on the card, gloo only on the CPU.
 
 ``activate_mesh`` / ``abstract_mesh_compat`` set and read an ambient mesh
 (a context variable). ``shard_map_compat`` runs a function on each rank's
-local shard with that rank's mesh ambient, so ``axis_group(name)`` inside
-it gives the process group of a mesh axis: torch's SPMD form of the
-reference's ``shard_map`` with named axes. The reference's jax-version
-shims (``AxisType.Auto``, ``set_mesh`` against the legacy ``with mesh:``,
+local block with the mesh ambient, so ``axis_group(name)`` inside it gives
+the process group of a mesh axis: torch's SPMD form of the reference's
+``shard_map`` with named axes, gradients included; ``all_gather`` and
+``all_to_all`` are the tiled ``lax`` collectives inside it, with their
+gradients. ``with_sharding_constraint`` is ``jax.lax``'s: a DTensor is
+redistributed, a plain tensor passes. The reference's jax-version shims
+(``AxisType.Auto``, ``set_mesh`` against the legacy ``with mesh:``,
 ``jax.shard_map`` against ``jax.experimental``) have no torch meaning and
 are not kept; the names are.
 """
@@ -42,6 +45,22 @@ from repro_torch.device import DeviceLike, resolve_device
 
 _AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: an axis name, a tuple of them, or None.
+    A one-name tuple becomes the bare name, as jax's spec stores it."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, (
+            p[0] if isinstance(p, tuple) and len(p) == 1 else p
+            for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
 
 
 class ShapeMesh:
@@ -149,27 +168,134 @@ def placements(spec, mesh) -> Tuple[Any, ...]:
                  for a in axis_names(mesh))
 
 
-def shard_map_compat(f: Callable, mesh, in_specs, out_specs) -> Callable:
-    """``f`` run on each rank's local shard. DTensor arguments are laid out
-    by ``in_specs`` and passed as their local shards; plain tensors are
-    taken as the rank's shard already. ``mesh`` is ambient inside ``f``
-    (``axis_group``). Outputs become DTensors laid out by ``out_specs``."""
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        x = x.contiguous()
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # a reduce-scatter: every rank used the whole, each keeps the sum
+        # of the gradients of its own block
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        block = grad.chunk(dist.get_world_size(ctx.group), ctx.dim)
+        return block[dist.get_rank(ctx.group)], None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of the blocks of dim 0: block j goes to rank
+    j, block i of the result came from rank i. Its own inverse, so the
+    backward is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def _exchange(x, group):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)`` over ``group``:
+    the ranks' blocks concatenated along ``dim`` in rank order. The
+    gradient is reduce-scattered back."""
+    return _AllGather.apply(x, dim, group)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)`` over
+    ``group``: ``x`` split into one block a rank along ``split_dim``, block
+    j sent to rank j, the blocks received concatenated along
+    ``concat_dim`` in rank order. The gradient takes the reverse
+    exchange."""
+    n = dist.get_world_size(group)
+    blocks = x.unflatten(split_dim, (n, x.shape[split_dim] // n))
+    got = _AllToAll.apply(blocks.movedim(split_dim, 0), group)
+    return got.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+def with_sharding_constraint(x, spec):
+    """The port's ``jax.lax.with_sharding_constraint``: a DTensor is
+    redistributed to ``spec``'s placements on its own mesh (differentiable:
+    the gradient is redistributed back); a plain tensor is returned as it
+    is, the reference's meaning on a one-device mesh."""
     from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
-    def local(arg, spec):
-        if isinstance(arg, DTensor):
-            return arg.redistribute(mesh, placements(spec, mesh)).to_local()
-        return arg
 
-    def wrap(out, spec):
-        return DTensor.from_local(out, mesh, placements(spec, mesh),
-                                  run_check=False)
+def from_local(local, mesh, spec, like=None):
+    """A DTensor of ``local`` blocks laid out by ``spec``; ``like`` (a
+    global tensor) gives the shape of an uneven layout."""
+    from torch.distributed.tensor import DTensor
+    kw = {} if like is None else {"shape": like.shape,
+                                  "stride": like.stride()}
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, **kw)
+
+
+def shard_map_compat(f: Callable, mesh, in_specs, out_specs) -> Callable:
+    """``f`` run on each rank's local block, with ``mesh`` ambient inside
+    it (``axis_group``). Every conversion passes gradients.
+
+    A DTensor argument is redistributed to its in-spec and passed as its
+    local block. A plain tensor under an ambient mesh is the global value,
+    replicated on every rank (GSPMD's meaning): it is sliced to the rank's
+    block by its in-spec. With no ambient mesh a plain tensor is taken as
+    the rank's block already (``allreduce_topk``'s callers).
+
+    Outputs are DTensors laid out by ``out_specs``; when every tensor
+    argument was plain and a mesh was ambient, they come back as plain
+    global tensors (gathered on every rank)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
 
     single_in = not isinstance(in_specs, (list, tuple)) or _is_spec(in_specs)
     single_out = _is_spec(out_specs)
+    # a mesh dim some output is split over: there the ranks compute
+    # different parts, so the gradient of an input replicated over it is
+    # each rank's partial sum (shard_map's transpose psums it)
+    split = [any(isinstance(p[i], Shard) for p in
+                 (placements(s, mesh) for s in
+                  ((out_specs,) if single_out else out_specs)))
+             for i in range(len(axis_names(mesh)))]
 
     def run(*args):
         specs = (in_specs,) * len(args) if single_in else tuple(in_specs)
+        sliced = abstract_mesh_compat() is not None
+        gather = sliced and not any(isinstance(a, DTensor) for a in args)
+
+        def local(arg, spec):
+            if sliced and not isinstance(arg, DTensor) and isinstance(
+                    arg, torch.Tensor):
+                arg = from_local(arg, mesh, ())
+            if not isinstance(arg, DTensor):
+                return arg
+            pl = placements(spec, mesh)
+            grad = tuple(Partial() if s and not isinstance(p, Shard) else p
+                         for s, p in zip(split, pl))
+            return arg.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+        def wrap(out, spec):
+            out = from_local(out, mesh, spec)
+            return out.full_tensor() if gather else out
+
         with activate_mesh(mesh):
             out = f(*(local(a, s) for a, s in zip(args, specs)))
         if single_out:
@@ -180,7 +306,6 @@ def shard_map_compat(f: Callable, mesh, in_specs, out_specs) -> Callable:
 
 
 def _is_spec(x) -> bool:
-    from repro_torch.distributed.sharding import PartitionSpec
     return isinstance(x, PartitionSpec)
 
 

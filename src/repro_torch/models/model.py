@@ -18,11 +18,23 @@ attn_every, ...]``), so weights carry across as copies
 (``models.convert``). The reference's ``lax.scan`` over stacked layers is
 a Python loop over per-layer views; its ``dynamic_update_slice`` of
 donated caches is an in-place write. Leaves are frozen as built; training
-makes them trainable (``requires_grad_()``, ``train.step``). The
-activation-sharding fields of ``ModelConfig`` (``act_*``, ``moe_*_axis``,
-``ssm_head_axis``, ``score_seq_axis``, ``vocab_axis``) are kept and
-constrain nothing on one device. ``remat`` takes its nearest torch meaning
-while gradients are recorded (``_maybe_remat``).
+makes them trainable (``requires_grad_()``, ``train.step``). ``remat``
+takes its nearest torch meaning while gradients are recorded
+(``_maybe_remat``).
+
+On a mesh the entry points take a DTensor tree: parameters laid out by
+``distributed.sharding.named_shardings`` (``distribute`` keeps the
+``ParamTree``), a batch by ``batch_shardings``. They then run under
+``torch.distributed.tensor.experimental.implicit_replication``: every
+tensor they create (positions, masks, the aux sum) enters as replicated.
+The activation-sharding fields of ``ModelConfig`` constrain the layout at
+the reference's sites (``launch.mesh.with_sharding_constraint``): the
+residual stream at every block boundary (``act_batch_axes``,
+``act_seq_axis``), the attention scores (``score_seq_axis``), the MoE
+(``moe_expert_axis``, ``moe_cap_axis``: expert parallelism under an
+ambient ``DeviceMesh``), the Mamba2 heads (``ssm_head_axis``) and the
+logits (``vocab_axis``). On plain tensors each constraint is the
+identity, so a call with no DTensor computes what it computed before.
 """
 from __future__ import annotations
 
@@ -31,11 +43,15 @@ import functools
 import math
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import (P, abstract_mesh_compat, activate_mesh,
+                                     with_sharding_constraint)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -75,7 +91,8 @@ class ModelConfig:
     ssd_chunk: int = 64
     remat: str = "none"  # none | full | dots (training: _maybe_remat)
     vocab_pad_multiple: int = 16
-    # the reference's mesh layout of activations; one device: no constraint
+    # the mesh layout of activations (None: no constraint); the launcher
+    # sets them (launch.dryrun.exec_config)
     act_batch_axes: Any = None
     act_seq_axis: Any = None
     moe_expert_axis: Any = None
@@ -325,7 +342,13 @@ def _maybe_remat(cfg: ModelConfig):
                 create_selective_checkpoint_contexts
             kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
                 _save_dots)
-        return _ckpt.checkpoint(block, *args, **kw)
+        mesh = abstract_mesh_compat()
+
+        def again(*a):  # the recompute sees the forward's mesh and mode
+            with activate_mesh(mesh), _on_mesh(*a):
+                return block(*a)
+
+        return _ckpt.checkpoint(again, *args, **kw)
 
     return run
 
@@ -333,22 +356,46 @@ def _maybe_remat(cfg: ModelConfig):
 rmsn = L.rmsnorm
 
 
+def _shard_act(x, cfg: ModelConfig):
+    """The residual stream's layout: batch over ``act_batch_axes``,
+    sequence over ``act_seq_axis``."""
+    if cfg.act_batch_axes is None and cfg.act_seq_axis is None:
+        return x
+    spec = P(cfg.act_batch_axes, cfg.act_seq_axis, *([None] * (x.ndim - 2)))
+    return with_sharding_constraint(x, spec)
+
+
+def _score_shard(cfg: ModelConfig):
+    if cfg.score_seq_axis is None:
+        return None
+    return (cfg.act_batch_axes, cfg.score_seq_axis)
+
+
+def _moe_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"group_axes": cfg.act_batch_axes,
+            "expert_axis": cfg.moe_expert_axis, "cap_axis": cfg.moe_cap_axis}
+
+
 def _dense_block(cfg: ModelConfig, lp, x, positions):
     h = x + L.causal_attention(lp["attn"], rmsn(lp["ln1"], x), positions,
-                               cfg.rope_theta, cfg.q_chunk)
+                               cfg.rope_theta, cfg.q_chunk,
+                               score_shard=_score_shard(cfg))
     return h + L.mlp(lp["mlp"], rmsn(lp["ln2"], h))
 
 
 def _moe_block(cfg: ModelConfig, lp, x, positions):
     h = x + L.causal_attention(lp["attn"], rmsn(lp["ln1"], x), positions,
-                               cfg.rope_theta, cfg.q_chunk)
+                               cfg.rope_theta, cfg.q_chunk,
+                               score_shard=_score_shard(cfg))
     y, aux = L.moe(lp["moe"], rmsn(lp["ln2"], h), cfg.top_k,
-                   cfg.capacity_factor)
+                   cfg.capacity_factor, **_moe_axes(cfg))
     return h + y, aux
 
 
 def _mamba_block(cfg: ModelConfig, lp, x):
-    return x + S.mamba2(lp["mamba"], rmsn(lp["ln"], x), cfg.ssd_chunk)
+    return x + S.mamba2(lp["mamba"], rmsn(lp["ln"], x), cfg.ssd_chunk,
+                        batch_axes=cfg.act_batch_axes,
+                        head_axis=cfg.ssm_head_axis)
 
 
 def _xlstm_pair_block(cfg: ModelConfig, lp, x):
@@ -368,22 +415,92 @@ def embed_inputs(params: ParamTree, cfg: ModelConfig,
     if cfg.family == "audio":
         x = batch["embeds"].to(cfg.dtype)  # STUB frontend output
     elif cfg.family == "vlm":
-        tok = params["embed"][batch["tokens"]]
+        tok = _lookup(params["embed"], batch["tokens"])
         img = torch.einsum("bld,de->ble", batch["patch_embeds"].to(cfg.dtype),
                            params["img_proj"])
         x = torch.cat([img, tok], dim=1)
     else:
-        x = params["embed"][batch["tokens"]]
+        x = _lookup(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    return x, positions
+    return x, _replicated(positions, x)
 
 
-def _head(params: ParamTree, cfg: ModelConfig, x: torch.Tensor):
-    x = rmsn(params["ln_f"], x)
+def _replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, created by the call, as a replicated DTensor when ``like``
+    is a DTensor: the masks it yields are saved for the backward pass,
+    which runs outside ``implicit_replication``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table`` (a negative id counts from the end).
+
+    A DTensor table is looked up vocab-parallel: its vocab dim keeps its
+    sharding and the rest is gathered (the FSDP slices); each rank reads
+    the ids that fall in its block of rows, zeros elsewhere, and the
+    result is a partial sum over the vocab's mesh dims, laid out over the
+    others as the ids are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    vocab = [p == Shard(0) for p in table.placements]
+    rows_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
+    _, (lo, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, rows_pl)
+    if isinstance(ids, DTensor):
+        id_pl = tuple(Replicate() if v else p
+                      for v, p in zip(vocab, ids.placements))
+        shape, ids = ids.shape, ids.redistribute(mesh, id_pl).to_local()
+    else:
+        id_pl, shape = (Replicate(),) * mesh.ndim, ids.shape
+    # where the ids are split, each rank's row gradient is a partial sum
+    rows = table.redistribute(mesh, rows_pl).to_local(grad_placements=tuple(
+        r if v or isinstance(p, Replicate) else Partial()
+        for v, r, p in zip(vocab, rows_pl, id_pl)))
+    ids = ids.long()
+    local = torch.where(ids < 0, ids + table.shape[0], ids) - lo
+    hit = (local >= 0) & (local < rows.shape[0])
+    out = rows[local.clamp(0, rows.shape[0] - 1)] * hit[..., None]
+    shape = (*shape, table.shape[1])
+    return DTensor.from_local(
+        out, mesh, tuple(Partial() if v else p for v, p in zip(vocab, id_pl)),
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _on_mesh(*tensors):
+    """``implicit_replication`` for a call on DTensors (the tensors it
+    creates, plain, enter as replicated); otherwise no context."""
+    from torch.distributed.tensor import DTensor
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _head(params: ParamTree, cfg: ModelConfig, x: torch.Tensor,
+          constrain: bool = False):
+    """Logits; ``constrain`` lays them out with the vocab dim over
+    ``vocab_axis`` (the forward's, not decode's, as in the reference)."""
+    x = rmsn(params["ln_f"], L.batch_split(x))
     if cfg.family == "audio":
-        return torch.einsum("bld,cvd->blcv", x, params["lm_heads"])
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bld,vd->blv", x, head)
+        logits = torch.einsum("bld,cvd->blcv", x, params["lm_heads"])
+    else:
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        logits = torch.einsum("bld,vd->blv", x, head)
+    if constrain and cfg.vocab_axis is not None:
+        logits = with_sharding_constraint(logits, P(
+            cfg.act_batch_axes, *([None] * (logits.ndim - 2)),
+            cfg.vocab_axis))
+    return logits
 
 
 def forward(params: ParamTree, cfg: ModelConfig,
@@ -392,9 +509,16 @@ def forward(params: ParamTree, cfg: ModelConfig,
     """Full-sequence forward. Returns (logits, aux_loss).
 
     ``last_only=True`` is the serving-prefill form: logits for the final
-    position only, the [b, S, V] logits never materialised."""
+    position only, the [b, S, V] logits never materialised. On DTensors
+    (module docstring) it runs under ``implicit_replication``."""
     _check_family(cfg)
+    with _on_mesh(params["embed"], *batch.values()):
+        return _forward(params, cfg, batch, last_only)
+
+
+def _forward(params, cfg, batch, last_only):
     x, positions = embed_inputs(params, cfg, batch)
+    x = _shard_act(x, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = _maybe_remat(cfg)
     if cfg.family in ATTENTION_FAMILIES:
@@ -408,6 +532,7 @@ def forward(params: ParamTree, cfg: ModelConfig,
             else:
                 x = remat(functools.partial(_dense_block, cfg, lp), x,
                           positions)
+            x = _shard_act(x, cfg)
     elif cfg.family == "hybrid_mamba":
         main, shared = params["mamba_main"], params["shared_attn"]
         n_groups, per = main["ln"]["scale"].shape[:2]
@@ -418,7 +543,7 @@ def forward(params: ParamTree, cfg: ModelConfig,
             return _dense_block(cfg, shared, h, positions)  # shared attn+MLP
 
         for g in range(n_groups):
-            x = remat(functools.partial(group, g), x)
+            x = _shard_act(remat(functools.partial(group, g), x), cfg)
         if "mamba_tail" in params:
             tail = params["mamba_tail"]
             for i in range(tail["ln"]["scale"].shape[0]):
@@ -426,34 +551,42 @@ def forward(params: ParamTree, cfg: ModelConfig,
     else:  # xlstm
         pairs = params["pairs"]
         for i in range(pairs["ln_m"]["scale"].shape[0]):
-            x = remat(functools.partial(_xlstm_pair_block, cfg,
-                                        pairs.layer(i)), x)
+            x = _shard_act(remat(functools.partial(
+                _xlstm_pair_block, cfg, pairs.layer(i)), x), cfg)
     if last_only:
         x = x[:, -1:, :]
-    return _head(params, cfg, x), aux_total
+    return _head(params, cfg, x, constrain=True), aux_total
 
 
 def loss_fn(params: ParamTree, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """Causal-LM loss (next-token). Padded-vocab logits are masked.
     Differentiable: with trainable leaves, ``backward()`` fills their
-    ``.grad``."""
+    ``.grad`` (DTensor leaves: DTensor gradients on the leaf's mesh).
+    On vocab-sharded DTensor logits the gold logit is a masked sum over
+    the vocab (a partial sum a rank), not a gather."""
+    from torch.distributed.tensor import DTensor
     logits, aux = forward(params, cfg, batch)
-    labels = batch["labels"].long()
-    logits = logits.float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(logits.shape[-1], device=logits.device) \
-            >= cfg.vocab_size
-        logits = torch.where(pad, -1e9, logits)
-    logz = torch.logsumexp(logits, dim=-1)
-    # ``take_along_axis`` counts a negative label from the end, as the
-    # embedding's indexing does a negative id (ROADMAP.md C8)
-    labels = torch.where(labels < 0, labels + logits.shape[-1], labels)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = logz - gold
-    if cfg.family == "vlm":  # loss only on text positions (after the image)
-        nll = nll[:, cfg.n_image_tokens:]
-    return torch.mean(nll) + 0.01 * aux
+    with _on_mesh(params["embed"], *batch.values()):
+        labels = batch["labels"].long()
+        logits = logits.float()
+        vocab = _replicated(torch.arange(logits.shape[-1],
+                                         device=logits.device), logits)
+        if cfg.padded_vocab != cfg.vocab_size:
+            logits = torch.where(vocab >= cfg.vocab_size, -1e9, logits)
+        logz = torch.logsumexp(logits, dim=-1)
+        # ``take_along_axis`` counts a negative label from the end, as the
+        # embedding's indexing does a negative id (ROADMAP.md C8)
+        labels = torch.where(labels < 0, labels + logits.shape[-1], labels)
+        if isinstance(logits, DTensor):
+            gold = torch.where(labels[..., None] == vocab, logits,
+                               0.0).sum(dim=-1)
+        else:
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = logz - gold
+        if cfg.family == "vlm":  # loss only on text positions (after image)
+            nll = nll[:, cfg.n_image_tokens:]
+        return torch.mean(nll) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -538,12 +671,18 @@ def decode_step(params: ParamTree, cfg: ModelConfig,
     """One-token decode. batch: {"tokens": [b, 1]} (``embeds`` for audio);
     pos: an int or a 0-d integer tensor. Writes each layer's key and value,
     or its recurrent state, into ``cache`` in place. Returns (logits
-    [b, 1, V], cache)."""
+    [b, 1, V], cache). On DTensors it runs under ``implicit_replication``
+    (module docstring); the MoE takes the config's mesh axes."""
     _check_family(cfg)
+    with _on_mesh(params["embed"], *batch.values()):
+        return _decode_step(params, cfg, cache, batch, pos)
+
+
+def _decode_step(params, cfg, cache, batch, pos):
     if cfg.family == "audio":
         x = batch["embeds"].to(cfg.dtype)
     else:
-        x = params["embed"][batch["tokens"]]
+        x = _lookup(params["embed"], batch["tokens"])
     kv = cache.get("k", cache.get("shared_k"))
     if kv is not None and not isinstance(pos, torch.Tensor):
         S_ = kv.shape[2]
@@ -561,7 +700,7 @@ def decode_step(params: ParamTree, cfg: ModelConfig,
             h = x + a
             if cfg.family == "moe":
                 y, _ = L.moe(lp["moe"], rmsn(lp["ln2"], h), cfg.top_k,
-                             cfg.capacity_factor)
+                             cfg.capacity_factor, **_moe_axes(cfg))
             else:
                 y = L.mlp(lp["mlp"], rmsn(lp["ln2"], h))
             x = h + y

@@ -29,9 +29,21 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import _normal, init_rmsnorm, rmsnorm, silu
+from repro_torch.launch.mesh import (P, shard_map_compat,
+                                     with_sharding_constraint)
+from repro_torch.models.layers import (_normal, batch_split, init_rmsnorm,
+                                       rmsnorm, silu)
 
 Params = Mapping[str, Any]
+
+
+def _pad_seq(t: torch.Tensor, before: int, after: int) -> torch.Tensor:
+    """``t`` zero-padded along dim 1, as a concatenation (the values of
+    ``F.pad``; DTensors take it on any layout)."""
+    def zeros(n):
+        return t.new_zeros((t.shape[0], n) + tuple(t.shape[2:]))
+
+    return torch.cat([zeros(before), t, zeros(after)], dim=1)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -132,10 +144,33 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, state
 
 
-def mamba2(params: Params, x: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+def _ssd(xh, dt, A, B, C, chunk: int, batch_axes, head_axis):
+    """``_ssd_chunked``'s output. On DTensors it runs per rank on the
+    rank's block of (batch over ``batch_axes``, heads over ``head_axis``),
+    where every head and sequence is independent (``shard_map_compat``):
+    its einsums fold (batch, chunk, head) into one dim, which DTensor
+    cannot do with the heads split."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(xh, DTensor):
+        return _ssd_chunked(xh, dt, A, B, C, chunk)[0]
+    sm = shard_map_compat(
+        lambda *a: _ssd_chunked(*a, chunk)[0], xh.device_mesh,
+        in_specs=(P(batch_axes, None, head_axis, None),
+                  P(batch_axes, None, head_axis), P(head_axis),
+                  P(batch_axes, None, None), P(batch_axes, None, None)),
+        out_specs=P(batch_axes, None, head_axis, None))
+    return sm(xh, dt, A, B, C)
+
+
+def mamba2(params: Params, x: torch.Tensor, chunk: int = 64,
+           batch_axes=None, head_axis=None) -> torch.Tensor:
     """Mamba2 block forward (train/prefill). x: [b,l,d]. Returns [b,l,d].
-    (The reference's ``batch_axes`` / ``head_axis`` shard the SSD heads
-    over a mesh; one device has nothing to shard.)"""
+
+    ``head_axis`` lays the SSD head dim of ``dt`` and ``xh`` (and so the
+    chunked SSD's intermediates) out over that mesh axis, the batch over
+    ``batch_axes`` (``launch.mesh.with_sharding_constraint``: DTensors are
+    redistributed, plain tensors pass as they are)."""
+    x = batch_split(x)
     b, l, d = x.shape
     d_inner, d_state, n_heads, head_dim = _mamba2_dims(params)
     proj = torch.einsum("bld,dp->blp", x, params["in_proj"])
@@ -145,7 +180,7 @@ def mamba2(params: Params, x: torch.Tensor, chunk: int = 64) -> torch.Tensor:
     xbc = torch.cat([xc, B, C], dim=-1)
     w = params["conv_w"]
     cw = w.shape[0]
-    pad = torch.nn.functional.pad(xbc, (0, 0, cw - 1, 0))
+    pad = _pad_seq(xbc, cw - 1, 0)
     conv = sum(pad[:, i:i + l, :] * w[i][None, None, :] for i in range(cw))
     xbc = silu(conv + params["conv_b"])
     xc, B, C = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
@@ -153,19 +188,20 @@ def mamba2(params: Params, x: torch.Tensor, chunk: int = 64) -> torch.Tensor:
     dt = _softplus(dt_pre.float() + params["dt_bias"])  # [b,l,h]
     A = -torch.exp(params["A_log"])  # [h] negative
     xh = xc.reshape(b, l, n_heads, head_dim)
+    if head_axis is not None:
+        dt = with_sharding_constraint(dt, P(batch_axes, None, head_axis))
+        xh = with_sharding_constraint(
+            xh, P(batch_axes, None, head_axis, None))
     pad_len = (-l) % chunk
     if pad_len:
-        xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad_len))
-        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad_len))
-        B = torch.nn.functional.pad(B, (0, 0, 0, pad_len))
-        C = torch.nn.functional.pad(C, (0, 0, 0, pad_len))
-    y, _ = _ssd_chunked(xh, dt, A, B, C, chunk)
+        xh, dt, B, C = (_pad_seq(t, 0, pad_len) for t in (xh, dt, B, C))
+    y = _ssd(xh, dt, A, B, C, chunk, batch_axes, head_axis)
     y = y[:, :l]
     y = y + xc.reshape(b, l, n_heads, head_dim).float() \
         * params["D"][None, None, :, None]
     y = y.reshape(b, l, d_inner).to(x.dtype)
     y = rmsnorm(params["norm"], y) * silu(z)
-    return torch.einsum("bli,id->bld", y, params["out_proj"])
+    return batch_split(torch.einsum("bli,id->bld", y, params["out_proj"]))
 
 
 def mamba2_init_state(params: Params, batch: int,
@@ -248,6 +284,7 @@ def init_mlstm(gen: Optional[torch.Generator], d_model: int, n_heads: int,
 
 def mlstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Parallel (quadratic) mLSTM forward. x: [b,l,d] -> [b,l,d]."""
+    x = batch_split(x)
     b, l, d = x.shape
     n_heads = params["b_if"].shape[-1] // 2
     up = torch.einsum("bld,di->bli", x, params["up_proj"])
@@ -279,7 +316,7 @@ def mlstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     y = torch.einsum("blsh,bshk->blhk", S / norm, v.float())
     y = y.reshape(b, l, d_inner).to(x.dtype)
     y = rmsnorm(params["norm"], y) * silu(z)
-    return torch.einsum("bli,id->bld", y, params["down_proj"])
+    return batch_split(torch.einsum("bli,id->bld", y, params["down_proj"]))
 
 
 def mlstm_init_state(params: Params, batch: int, d_model: int,
@@ -389,6 +426,7 @@ def _slstm_out(params: Params, h: torch.Tensor, dtype) -> torch.Tensor:
 
 def slstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     """sLSTM over a sequence, one cell a step. x: [b,l,d] -> [b,l,d]."""
+    x = batch_split(x)
     b, l, d = x.shape
     xw = torch.einsum("bld,dg->blg", x, params["w_x"])  # [b,l,4d]
     state = slstm_init_state(params, b, d, x.device)
@@ -396,7 +434,7 @@ def slstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     for t in range(l):
         state = _slstm_cell(params, state, xw[:, t])
         hs.append(state["h"])
-    return _slstm_out(params, torch.stack(hs, dim=1), x.dtype)
+    return batch_split(_slstm_out(params, torch.stack(hs, dim=1), x.dtype))
 
 
 def slstm_decode(params: Params, x: torch.Tensor,

@@ -949,3 +949,45 @@ def test_gpu_training_data_path_matches_cpu(cuda_device, monkeypatch):
     pipe, rec, launches = chip_smoke.train_data_path(cuda_device, 0, 49152)
     assert pipe.cursor() == 0 and rec["selected_tokens"] > 0
     assert all(launches[k] > 0 for k in chip_smoke.TRAIN_KERNELS), launches
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """The (1, 1) mesh of an NCCL world of one, torn down after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(cuda_device)
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gpu_ep_body_equals_local_moe_at_smoke_width(nccl_mesh, cuda_device):
+    """``chip_smoke.py``'s mesh step (a) at qwen3-moe's smoke width: the
+    expert-parallel body over NCCL against the local ``moe``."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        model_configs.get_smoke_config("qwen3_moe_235b_a22b"),
+        dtype=torch.bfloat16)
+    rec = chip_smoke.mesh_moe_check(nccl_mesh, cfg, cuda_device, 0, 2, 16)
+    assert rec["slots_equal"] and rec["kept"] < rec["entries"]
+    assert rec["group_backends"] == {"data": "nccl", "model": "nccl"}
+
+
+@pytest.mark.gpu
+def test_gpu_dtensor_model_equals_plain_at_smoke_width(nccl_mesh,
+                                                       cuda_device):
+    """``chip_smoke.py``'s mesh step (b) at granite-moe's smoke width:
+    forward and greedy decode on DTensors against the plain ones."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        model_configs.get_smoke_config("granite_moe_3b_a800m"),
+        dtype=torch.bfloat16)
+    rec = chip_smoke.mesh_model_check(nccl_mesh, cfg, cuda_device, 0, 4, 8,
+                                      4)
+    assert rec["greedy_ids_equal"]
+    assert rec["logits_rel_err"] < chip_smoke.MESH_DT_BOUND
+    assert rec["decode_logits_rel_err"] < chip_smoke.MESH_DT_BOUND

@@ -260,21 +260,26 @@ def test_mlp_twin(rng):
     np.testing.assert_allclose(_host(got), _host(want), rtol=1e-5, atol=1e-6)
 
 
-def _ref_route(p, x, top_k, cf):
-    """The reference ``moe``'s routing steps (layers.py:339-377), local."""
+def _ref_route(p, x, top_k, cf, n_sub=1):
+    """The reference ``moe``'s routing steps (layers.py:339-377): each row
+    ranks as ``n_sub`` sub-groups (the expert-parallel branch's ``n_sub``
+    is the model axis size)."""
     b, l, _ = x.shape
     E = p["router"].shape[-1]
     logits = jnp.einsum("bld,de->ble", x, p["router"].astype(x.dtype),
                         preferred_element_type=jnp.float32)
     probs = jax.nn.softmax(logits, axis=-1)
     _, expert_idx = jax.lax.top_k(probs, top_k)
-    capacity = max(1, int(l * top_k * cf / E))
-    flat = expert_idx.reshape(b, l * top_k)
+    l_sub = l // n_sub
+    capacity = max(1, int(l_sub * top_k * cf / E))
+    flat = expert_idx.reshape(b * n_sub, l_sub * top_k)
     rank = RL._expert_rank(flat)
     keep = rank < capacity
     slot = jnp.where(keep, flat * capacity + rank,
                      p["w_gate"].shape[0] * capacity)
-    return {"expert": flat, "rank": rank, "keep": keep, "slot": slot}
+    n = l * top_k
+    return {"expert": flat.reshape(b, n), "rank": rank.reshape(b, n),
+            "keep": keep.reshape(b, n), "slot": slot.reshape(b, n)}
 
 
 @pytest.mark.parametrize("cf,n_padded", [(1.25, 0), (0.5, 0), (16.0, 0),
@@ -300,6 +305,72 @@ def test_moe_twin(rng, cf, n_padded):
     np.testing.assert_allclose(_host(got_y), _host(want_y), rtol=1e-5,
                                atol=1e-6)
     assert abs(float(got_aux) - float(want_aux)) < 1e-6
+
+
+@pytest.mark.parametrize("n_sub", [2, 4])
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_route_sub_groups_equal_the_reference_ranking(rng, n_sub, cf):
+    d, ff, E, k = 16, 24, 6, 2
+    p = _np(RL.init_moe(jax.random.PRNGKey(4), d, ff, E, jnp.float32,
+                        n_padded=8))
+    x = rng.standard_normal((3, 16, d)).astype(np.float32)
+    want = jax.jit(lambda p_, x_: _ref_route(p_, x_, k, cf, n_sub))(
+        {kk: jnp.asarray(v) for kk, v in p.items()}, jnp.asarray(x))
+    tp = {kk: _t(v) for kk, v in p.items()}
+    got = TL.moe_route(tp, _t(x), k, cf, n_sub=n_sub)
+    for key in ("expert", "rank", "keep", "slot"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    assert not got["keep"].all()
+    # a sub-group routed alone (one rank's block) takes the same slots
+    l_sub = x.shape[1] // n_sub
+    for j in range(n_sub):
+        block = TL.moe_route(tp, _t(x[:, j * l_sub:(j + 1) * l_sub]), k, cf)
+        np.testing.assert_array_equal(
+            block["slot"].numpy(),
+            got["slot"].numpy()[:, j * l_sub * k:(j + 1) * l_sub * k])
+
+
+AXES = {"act_batch_axes": ("data",), "act_seq_axis": "model",
+        "moe_expert_axis": "model", "moe_cap_axis": "model",
+        "ssm_head_axis": "model", "score_seq_axis": "model",
+        "vocab_axis": "model"}
+
+
+def test_moe_with_every_axis_and_no_mesh_is_unchanged(rng):
+    p = {k: _t(v) for k, v in _np(RL.init_moe(
+        jax.random.PRNGKey(3), 16, 24, 5, jnp.float32, n_padded=8)).items()}
+    x = _t(rng.standard_normal((3, 12, 16)).astype(np.float32))
+    want = TL.moe(p, x, 2, 1.25)
+    got = TL.moe(p, x, 2, 1.25, group_axes=("data",), expert_axis="model",
+                 cap_axis="model")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_forward_and_decode_with_every_axis_and_no_mesh_are_unchanged(arch,
+                                                                      rng):
+    """Without a mesh every sharding site is the identity: the numbers of
+    a call with every axis set are those of a call with none, bit for
+    bit."""
+    _, tcfg = _configs(arch, "float32")
+    acfg = dataclasses.replace(tcfg, **AXES)
+    params = params_from_numpy(tcfg, _ref_tree(arch), "cpu")
+    batch = {k: _t(v) for k, v in _batch(tcfg, rng).items()}
+    key = "embeds" if tcfg.family == "audio" else "tokens"
+
+    def run(cfg):
+        with torch.no_grad():
+            out = [TM.forward(params, cfg, batch)[0]]
+            if cfg.family != "vlm":
+                cache = TM.init_cache(cfg, 2, 3, "cpu")
+                out += [TM.decode_step(params, cfg, cache,
+                                       {key: batch[key][:, i:i + 1]}, i)[0]
+                        for i in range(3)]
+        return out
+
+    for got, want in zip(run(acfg), run(tcfg)):
+        assert torch.equal(got, want)
 
 
 def test_expert_rank_twin(rng):

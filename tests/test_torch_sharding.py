@@ -445,3 +445,95 @@ def test_host_mesh_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TMesh.make_host_mesh()
     assert not dist.is_initialized()
+
+
+# ---- the model's mesh dataflow on a world of one --------------------------
+
+
+def _smoke_f32(arch="qwen2_1p5b", **kw):
+    return dataclasses.replace(TC.get_smoke_config(arch),
+                               dtype=torch.float32, **kw)
+
+
+def test_distribute_keeps_the_param_tree(world_of_one):
+    """``distribute`` of a ``ParamTree`` is a ``ParamTree`` of DTensors,
+    so laid-out params enter ``forward`` as they are."""
+    from torch.distributed.tensor import DTensor
+    cfg = _smoke_f32()
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    laid = Sh.distribute(params, Sh.named_shardings(params, world_of_one))
+    assert isinstance(laid, TM.ParamTree)
+    assert all(isinstance(p, DTensor) and not p.requires_grad
+               for p in laid.parameters())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    with torch.no_grad():
+        got, _ = TM.forward(laid, cfg, {"tokens": tokens})
+        want, _ = TM.forward(params, cfg, {"tokens": tokens})
+    np.testing.assert_allclose(got.full_tensor().numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_loss_and_gradients_on_vocab_sharded_dtensors(world_of_one):
+    """``loss_fn`` on params laid out by ``named_shardings`` (the vocab of
+    the tied embedding over "model") and a DTensor batch: the loss and
+    every gradient leaf within 1e-5 of one device."""
+    from torch.distributed.tensor import distribute_tensor
+    cfg = _smoke_f32(act_batch_axes=("data",), vocab_axis="model")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    shardings = Sh.named_shardings(params, world_of_one)
+    assert shardings["embed"].spec == P("model", "data")
+    laid = TM.ParamTree(Sh.distribute(params.tree(), shardings))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    spec = Sh.batch_spec(world_of_one, 2)
+    dbatch = {k: distribute_tensor(v, world_of_one,
+                                   TMesh.placements(spec, world_of_one))
+              for k, v in batch.items()}
+    laid.requires_grad_()
+    params.requires_grad_()
+    with TMesh.activate_mesh(world_of_one):
+        loss = TM.loss_fn(laid, cfg, dbatch)
+    loss.backward()
+    want = TM.loss_fn(params, cfg, batch)
+    want.backward()
+    assert abs(loss.full_tensor().item() - want.item()) < 1e-5
+    grads = dict(params.named_parameters())
+    for name, p in laid.named_parameters():
+        np.testing.assert_allclose(p.grad.full_tensor().numpy(),
+                                   grads[name].grad.numpy(), atol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("spec", [P("data", None), P(None, "model"),
+                                  P(("data", "model"), None), P(None, None)])
+def test_with_sharding_constraint_lays_a_dtensor_out(world_of_one, spec):
+    from torch.distributed.tensor import distribute_tensor, Replicate
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    d = distribute_tensor(x, world_of_one, (Replicate(), Replicate()))
+    got = TMesh.with_sharding_constraint(d, spec)
+    assert tuple(got.placements) == TMesh.placements(spec, world_of_one)
+    assert torch.equal(got.full_tensor(), x)
+
+
+def test_with_sharding_constraint_passes_plain_tensors():
+    x = torch.ones(3, 4, requires_grad=True)
+    assert TMesh.with_sharding_constraint(x, P("data", "model")) is x
+
+
+def test_shard_map_under_an_ambient_mesh_takes_plain_tensors_whole(
+        world_of_one):
+    """A plain tensor under an ambient mesh is the global value, sliced by
+    its in-spec; the caller gets a plain global tensor back, and the
+    gradient flows through."""
+    x = torch.arange(8, dtype=torch.float32).reshape(4, 2).requires_grad_()
+    f = TMesh.shard_map_compat(lambda a: a * 2, world_of_one,
+                               in_specs=P("data", None),
+                               out_specs=P("data", None))
+    with TMesh.activate_mesh(world_of_one):
+        y = f(x)
+    assert type(y) is torch.Tensor and torch.equal(y, x.detach() * 2)
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.full_like(x, 2.0))

@@ -1,0 +1,219 @@
+"""One rank of a gloo world of four running the port's mesh dataflow.
+
+    python tests/torch_mesh_world.py RANK STORE INPUTS OUT
+
+``tests/test_torch_mesh_models.py`` starts four of these (a file store at
+``STORE``, a (2, 2) ("data", "model") mesh on the CPU). Every rank runs
+every scenario on the inputs and weights in ``INPUTS`` (an ``.npz`` of the
+reference's draws, ``/``-joined names); rank 0 saves the global results
+to ``OUT``, beside the same computations on one device without a mesh.
+This module imports no JAX.
+
+Scenarios (the names of the saved arrays start with them):
+  * ``i``: ``moe`` with ``group_axes=("data",)``, ``expert_axis="model"``
+    under the ambient mesh (the expert-parallel branch), plain tensors, at
+    capacity factors 100 and 1.25: y, aux and slots; the slots of
+    ``moe_route(..., n_sub=2)``.
+  * ``ii``: gradients of ``sum(y * cot) + aux`` of that branch at 100.
+  * ``iii``: ``moe`` on 5 tokens (the local branch under the mesh).
+  * ``iv``: the reference's mini dry-run config (qwen2 smoke, d 64, batch
+    8 x 64) on DTensor params (``named_shardings``) and a DTensor batch
+    (``batch_shardings``): ``loss_fn`` and every gradient leaf.
+  * ``v``: granite-moe (expert axis), zamba2 (Mamba2 head axis) and
+    smollm (sequence, vocab and score axes; its 3 heads do not divide the
+    model axis) smoke forwards on DTensors; granite also at capacity factor 1.25
+    and two teacher-forced ``decode_step`` calls on a DTensor cache
+    (``cache_shardings``).
+"""
+import dataclasses
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs as TC
+from repro_torch.distributed import sharding as Sh
+from repro_torch.launch import mesh as TMesh
+from repro_torch.models import layers as L
+from repro_torch.models import model as TM
+from repro_torch.models.convert import params_from_numpy
+
+WORLD = 4
+MOE_TOP_K = 2
+MINI = {"d_model": 64, "n_heads": 4, "n_kv_heads": 2, "d_ff": 128}
+MINI_AXES = {"act_batch_axes": ("data",), "act_seq_axis": "model",
+             "vocab_axis": "model", "remat": "full"}
+# no drops: the expert-parallel branch ranks each sequence in sub-groups,
+# so only without drops does it compute what one device computes
+NO_DROP = 100.0
+SMOKE_AXES = {"granite_moe_3b_a800m": {"moe_expert_axis": "model"},
+              "zamba2_1p2b": {"ssm_head_axis": "model"},
+              # 3 heads on a model axis of 2: the head-dim fallback, and
+              # the scores' key dim over the model axis instead
+              "smollm_360m": {"act_seq_axis": "model", "vocab_axis": "model",
+                              "score_seq_axis": "model"}}
+
+
+def mini_config(cfg):
+    """The reference's ``test_mini_dryrun_cell_8dev`` config (float32)."""
+    return dataclasses.replace(cfg, **MINI, **MINI_AXES)
+
+
+def smoke_config(cfg, arch, capacity_factor=NO_DROP):
+    return dataclasses.replace(cfg, act_batch_axes=("data",),
+                               capacity_factor=capacity_factor,
+                               **SMOKE_AXES[arch])
+
+
+def nest(flat, prefix):
+    """The ``prefix/``-named arrays of ``flat`` as a nested dict."""
+    tree = {}
+    for name, a in flat.items():
+        if name.startswith(prefix + "/"):
+            *path, leaf = name[len(prefix) + 1:].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = a
+    return tree
+
+
+def _host(t):
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().numpy()
+
+
+def _grads(params, out, prefix):
+    for name, p in params.named_parameters():
+        out[f"{prefix}/{name.replace('.', '/')}"] = _host(p.grad)
+
+
+def _moe_scenarios(mesh, inp, out):
+    p = {k: torch.from_numpy(v) for k, v in nest(inp, "moe").items()}
+    x = torch.from_numpy(inp["x"])
+    axes = {"group_axes": ("data",), "expert_axis": "model"}
+    for cf in (NO_DROP, 1.25):
+        with TMesh.activate_mesh(mesh):
+            y, aux, slot = L._moe(p, x, MOE_TOP_K, cf, **axes)
+        y1, aux1, slot1 = L._moe(p, x, MOE_TOP_K, cf)
+        out.update({f"i/y/{cf}": _host(y), f"i/aux/{cf}": _host(aux),
+                    f"i/slot/{cf}": _host(slot), f"i/y1/{cf}": _host(y1),
+                    f"i/aux1/{cf}": _host(aux1), f"i/slot1/{cf}": _host(slot1),
+                    f"i/route2/{cf}": _host(L.moe_route(
+                        p, x, MOE_TOP_K, cf, n_sub=2)["slot"])})
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xg = x.clone().requires_grad_()
+    with TMesh.activate_mesh(mesh):
+        y, aux = L.moe(leaves, xg, MOE_TOP_K, NO_DROP, **axes)
+    val = (y * torch.from_numpy(inp["cot"])).sum() + aux
+    val.backward()
+    out["ii/val"] = _host(val)
+    out["ii/x"] = _host(xg.grad)
+    out.update({f"ii/{k}": _host(v.grad) for k, v in leaves.items()})
+    xo = torch.from_numpy(inp["x_odd"])
+    with TMesh.activate_mesh(mesh):
+        y, aux = L.moe(p, xo, MOE_TOP_K, 1.25, **axes)
+    y1, aux1 = L.moe(p, xo, MOE_TOP_K, 1.25)
+    out.update({"iii/y": _host(y), "iii/aux": _host(aux),
+                "iii/y1": _host(y1), "iii/aux1": _host(aux1)})
+
+
+def _laid_out(mesh, params, batch):
+    """``params`` by ``named_shardings`` and ``batch`` by
+    ``batch_shardings``, as DTensors."""
+    from torch.distributed.tensor import distribute_tensor
+    dp = Sh.distribute(params, Sh.named_shardings(params, mesh))
+    specs = Sh.batch_shardings(batch, mesh, next(iter(batch.values())).shape[0])
+    return dp, {k: distribute_tensor(v, mesh, TMesh.placements(specs[k], mesh))
+                for k, v in batch.items()}
+
+
+def _mini_scenario(mesh, inp, out):
+    cfg = mini_config(dataclasses.replace(
+        TC.get_smoke_config("qwen2_1p5b"), dtype=torch.float32))
+    batch = {k: torch.from_numpy(inp[f"mini/{k}"]) for k in ("tokens",
+                                                            "labels")}
+    params = params_from_numpy(cfg, nest(inp, "mini/params"), "cpu")
+    dp, dbatch = _laid_out(mesh, params, batch)
+    out["iv/params_type"] = np.array(type(dp).__name__)
+    dp.requires_grad_()
+    with TMesh.activate_mesh(mesh):
+        loss = TM.loss_fn(dp, cfg, dbatch)
+    loss.backward()
+    out["iv/loss"] = _host(loss)
+    _grads(dp, out, "iv/g")
+    params.requires_grad_()
+    loss1 = TM.loss_fn(params, cfg, batch)
+    loss1.backward()
+    out["iv/loss1"] = _host(loss1)
+    _grads(params, out, "iv/g1")
+
+
+def _smoke_scenarios(mesh, inp, out):
+    from torch.distributed.tensor import distribute_tensor
+    for arch in SMOKE_AXES:
+        base = dataclasses.replace(TC.get_smoke_config(arch),
+                                   dtype=torch.float32)
+        tokens = torch.from_numpy(inp[f"{arch}/tokens"])
+        params = params_from_numpy(base, nest(inp, f"{arch}/params"), "cpu")
+        dp, dbatch = _laid_out(mesh, params, {"tokens": tokens})
+        cfs = (NO_DROP, 1.25) if base.family == "moe" else (NO_DROP,)
+        for cf in cfs:
+            cfg = smoke_config(base, arch, cf)
+            with TMesh.activate_mesh(mesh), torch.no_grad():
+                logits, _ = TM.forward(dp, cfg, dbatch)
+            with torch.no_grad():
+                want, _ = TM.forward(params, cfg, {"tokens": tokens})
+            out[f"v/{arch}/{cf}"] = _host(logits)
+            out[f"v/{arch}/{cf}/one"] = _host(want)
+        if base.family != "moe":
+            continue
+        cfg = smoke_config(base, arch)
+        b = tokens.shape[0]
+        cache1 = TM.init_cache(cfg, b, 2, "cpu")
+        specs = Sh.cache_shardings(cache1, mesh, b)
+        cache = {k: distribute_tensor(v.clone(), mesh,
+                                      TMesh.placements(specs[k], mesh))
+                 for k, v in cache1.items()}
+        steps, steps1 = [], []
+        with TMesh.activate_mesh(mesh), torch.no_grad():
+            for i in range(2):
+                lg, _ = TM.decode_step(dp, cfg, cache,
+                                       {"tokens": dbatch["tokens"][:, i:i + 1]}, i)
+                steps.append(_host(lg))
+        with torch.no_grad():
+            for i in range(2):
+                lg, _ = TM.decode_step(params, cfg, cache1,
+                                       {"tokens": tokens[:, i:i + 1]}, i)
+                steps1.append(_host(lg))
+        out[f"v/{arch}/decode"] = np.stack(steps)
+        out[f"v/{arch}/decode/one"] = np.stack(steps1)
+
+
+def main(argv):
+    rank, store, inp_path, out_path = argv
+    rank = int(rank)
+    dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
+                            rank=rank, world_size=WORLD)
+    try:
+        mesh = TMesh.make_mesh_compat((2, 2), ("data", "model"), "cpu")
+        inp = dict(np.load(inp_path))
+        out = {}
+        for name, run in (("moe", _moe_scenarios), ("mini", _mini_scenario),
+                          ("smoke", _smoke_scenarios)):
+            t0 = time.perf_counter()
+            run(mesh, inp, out)
+            out[f"wall/{name}"] = np.array(time.perf_counter() - t0)
+        if rank == 0:
+            np.savez(out_path, **out)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    torch.manual_seed(0)
+    main(sys.argv[1:])

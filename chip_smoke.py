@@ -183,11 +183,14 @@ first error:
    granite-moe-3b-a800m's full-width forward on DTensor params and batch
    (``MESH_DT_AXES``) against the plain forward within ``MESH_DT_BOUND``,
    and a greedy ``decode_step`` loop on a DTensor cache with the same ids
-   and logits, wall s of each; then (c) one dry-run record of qwen2-1.5b x
-   decode_32k on the (16, 16) shape-only mesh (argument bytes a device,
-   one device's peak against the card's memory, FLOPs and bytes of the
-   traced step), which must equal ``MESH_CELL_RECORD`` but for its
-   timings. Four JSON lines.
+   and logits, wall s of each; then (c) the dry run as one rank of the
+   production mesh (``MESH_CELLS``: qwen3-moe-235b-a22b x train_4k on the
+   fake world of 256 ranks, qwen2-1.5b x decode_32k on the fake world of
+   512; the rank's memory, FLOPs, bytes and collectives, traced on the
+   CPU), each record ``ok``, a MoE record with all-to-alls, and each equal
+   but for its timings and the card's memory to the record the CPU tests
+   hold for the same torch release (``MESH_CELL_RECORDS``). Five JSON
+   lines.
 11. Examples phase: the five twins of ``examples/`` (``torch_quickstart``,
    ``torch_production_star``, ``torch_serving_demo``,
    ``torch_serve_batched``, ``torch_train_lm``) at their reference sizes on
@@ -309,32 +312,159 @@ MESH_ARCH = "qwen2_1p5b"
 MESH_TOPK_FRAC = 0.01
 MESH_F32_LEAF = (1536, 8960)
 MESH_BF16_LEAF = (128, 128)
-MESH_CELL = ("qwen2_1p5b", "decode_32k")
-# the dry-run record of MESH_CELL without its timings, as the mesh phase
-# printed it before the model's mesh dataflow was ported: a meta trace has
-# no DeviceMesh, so nothing of that dataflow may change it
-MESH_CELL_RECORD = {
-    "arch": "qwen2_1p5b", "shape": "decode_32k", "mesh": "single",
-    "n_devices": 256, "status": "ok", "aten_ops": 6549,
-    "memory": {"argument_bytes_per_device": 482111012,
-               "argument_bytes_one_device": 123346513412,
-               "step_live_bytes_one_device": 2452389896,
-               "peak_estimate_bytes_one_device": 125798903308},
-    "cost": {"flops_one_device": 1187012374784.0,
-             "bytes_accessed_one_device": 417146668304.0},
-    "collectives": {
-        "bytes_by_type": {k: 0.0 for k in (
-            "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-            "collective-permute", "collective-broadcast")},
-        "count_by_type": {k: 0 for k in (
-            "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-            "collective-permute", "collective-broadcast")},
-        "total_bytes": 0.0},
-    "model_flops_global": 395190861824.0, "act_seq_axis": None,
-    "remat": "none",
-    "hbm": {"bytes": 85017493504, "source": "NVIDIA H100 80GB HBM3"},
-    "fits_hbm": False}
-CELL_TIMINGS = ("build_s", "trace_s", "parse_s")
+# (c) the dry run (``launch/dryrun.py``) as rank 0 of a fake world of the
+# production mesh's size: (arch, shape, mesh)
+MESH_CELLS = (("qwen3_moe_235b_a22b", "train_4k", "single"),
+              ("qwen2_1p5b", "decode_32k", "multi"))
+# the records of MESH_CELLS without CELL_UNFROZEN, by the torch release
+# that traced them (on the CPU; DTensor's redistributions differ between
+# releases: 2.11 all-reduces a partial sum where 2.13 reduce-scatters it,
+# and picks other layouts for a few products; PERF.md section 6)
+MESH_CELL_RECORDS = {
+    "2.11.0": (
+        {
+            "arch": "qwen3_moe_235b_a22b",
+            "shape": "train_4k",
+            "mesh": "single",
+            "n_devices": 256,
+            "status": "ok",
+            "aten_ops": 1407830,
+            "memory": {
+                "argument_bytes": 5460099076,
+                "output_bytes": 16,
+                "temp_bytes": 22761307668,
+                "peak_estimate_bytes": 28221406744},
+            "cost": {
+                "flops_per_device": 2586535507733563.0,
+                "bytes_accessed_per_device": 223065916194681.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 56779965952.0,
+                    "all-reduce": 328776509420.0,
+                    "reduce-scatter": 103621853184.0,
+                    "all-to-all": 189246996480.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 27165,
+                    "all-reduce": 10619,
+                    "reduce-scatter": 4552,
+                    "all-to-all": 4512,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 678425325036.0},
+            "model_flops_global": 1.1852782592065536e+17,
+            "act_seq_axis": "model",
+            "remat": "full",
+            "fits_hbm": True},
+        {
+            "arch": "qwen2_1p5b",
+            "shape": "decode_32k",
+            "mesh": "multi",
+            "n_devices": 512,
+            "status": "ok",
+            "aten_ops": 10131,
+            "memory": {
+                "argument_bytes": 247229972,
+                "output_bytes": 1215488,
+                "temp_bytes": 58343424,
+                "peak_estimate_bytes": 305573396},
+            "cost": {
+                "flops_per_device": 3833856488.0,
+                "bytes_accessed_per_device": 3496113760.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 16802304.0,
+                    "all-reduce": 17502208.0,
+                    "reduce-scatter": 0.0,
+                    "all-to-all": 0.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 366,
+                    "all-reduce": 337,
+                    "reduce-scatter": 0,
+                    "all-to-all": 0,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 34304512.0},
+            "model_flops_global": 395190861824.0,
+            "act_seq_axis": None,
+            "remat": "none",
+            "fits_hbm": True}),
+    "2.13.0": (
+        {
+            "arch": "qwen3_moe_235b_a22b",
+            "shape": "train_4k",
+            "mesh": "single",
+            "n_devices": 256,
+            "status": "ok",
+            "aten_ops": 1418379,
+            "memory": {
+                "argument_bytes": 5460099076,
+                "output_bytes": 16,
+                "temp_bytes": 22761330708,
+                "peak_estimate_bytes": 28221429784},
+            "cost": {
+                "flops_per_device": 2586535254313830.0,
+                "bytes_accessed_per_device": 223166046407005.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 56746672128.0,
+                    "all-reduce": 328311177264.0,
+                    "reduce-scatter": 104293859328.0,
+                    "all-to-all": 189246996480.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 27162,
+                    "all-reduce": 6073,
+                    "reduce-scatter": 6051,
+                    "all-to-all": 4512,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 678598705200.0},
+            "model_flops_global": 1.1852782592065536e+17,
+            "act_seq_axis": "model",
+            "remat": "full",
+            "fits_hbm": True},
+        {
+            "arch": "qwen2_1p5b",
+            "shape": "decode_32k",
+            "mesh": "multi",
+            "n_devices": 512,
+            "status": "ok",
+            "aten_ops": 10524,
+            "memory": {
+                "argument_bytes": 247229972,
+                "output_bytes": 1215488,
+                "temp_bytes": 58343424,
+                "peak_estimate_bytes": 305573396},
+            "cost": {
+                "flops_per_device": 3827566568.0,
+                "bytes_accessed_per_device": 3461443936.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 16927744.0,
+                    "all-reduce": 8729472.0,
+                    "reduce-scatter": 8773632.0,
+                    "all-to-all": 0.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 394,
+                    "all-reduce": 253,
+                    "reduce-scatter": 140,
+                    "all-to-all": 0,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 34430848.0},
+            "model_flops_global": 395190861824.0,
+            "act_seq_axis": None,
+            "remat": "none",
+            "fits_hbm": True})}
+# what a record of the same cell may change from run to run or card to card
+CELL_UNFROZEN = ("build_s", "trace_s", "parse_s", "hbm")
 # (a) one MoE layer of qwen3-moe at full width (d_model 4,096, 128 experts,
 # d_ff 1,536, top 8, bf16: 4.8 GB of expert weights) through the
 # expert-parallel body on the mesh, against the local moe on the card
@@ -3046,11 +3176,11 @@ def distinct_leaf(shape, dtype, dev, seed):
     return (mag * sign).reshape(shape).to(dev)
 
 
-def _cell_fields(rec):
-    """A dry-run record without its timings."""
+def cell_fields(rec):
+    """A dry-run record without its timings and the card's memory."""
     if isinstance(rec, dict):
-        return {k: _cell_fields(v) for k, v in rec.items()
-                if k not in CELL_TIMINGS}
+        return {k: cell_fields(v) for k, v in rec.items()
+                if k not in CELL_UNFROZEN}
     return rec
 
 
@@ -3231,9 +3361,10 @@ def mesh_phase(dev, seed, card):
     mesh's data group equal to the plain single-device form
     (``compression._topk_project``) on a float32 and a bfloat16 leaf, a
     checkpoint restored onto the mesh bit for bit, ``mesh_moe_check`` (a)
-    and ``mesh_model_check`` (b), and one dry-run record of ``MESH_CELL``,
-    which on the card must equal ``MESH_CELL_RECORD`` (c). Prints four
-    JSON lines."""
+    and ``mesh_model_check`` (b), after the world of one is gone the
+    dry-run records of ``MESH_CELLS`` on fake worlds of their meshes'
+    sizes, which on the card must equal the torch release's
+    ``MESH_CELL_RECORDS`` (c). Prints five JSON lines."""
     import shutil
     import torch
     import torch.distributed as dist
@@ -3341,18 +3472,29 @@ def mesh_phase(dev, seed, card):
     finally:
         dist.destroy_process_group()
 
-    arch, shape = MESH_CELL
-    cell = dryrun.run_cell(arch, shape, multi_pod=False)
-    if cell["status"] != "ok":
-        raise AssertionError(f"dry run {arch} x {shape}: {cell}")
-    rec["dryrun_equal_to_pr22"] = _cell_fields(cell) == MESH_CELL_RECORD
-    if dev.type == "cuda" and not rec["dryrun_equal_to_pr22"]:
-        raise AssertionError(f"dry run {arch} x {shape} changed: "
-                             f"{_cell_fields(cell)}")
+    cells = []
+    release = torch.__version__.split("+")[0]
+    if dev.type == "cuda" and release not in MESH_CELL_RECORDS:
+        raise AssertionError(f"no dry-run records for torch {release}")
+    for (arch, shape, mesh_name), want in zip(
+            MESH_CELLS, MESH_CELL_RECORDS.get(release, (None,) * 2)):
+        cell = dryrun.run_cell(arch, shape, multi_pod=mesh_name == "multi")
+        name = f"dry run {arch} x {shape} x {mesh_name}"
+        if cell["status"] != "ok":
+            raise AssertionError(f"{name}: {cell}")
+        if configs.get_config(arch).n_experts and \
+                cell["collectives"]["count_by_type"]["all-to-all"] == 0:
+            raise AssertionError(f"{name}: no all-to-all on the MoE cell")
+        cell["equal_to_record"] = cell_fields(cell) == want
+        if dev.type == "cuda" and not cell["equal_to_record"]:
+            raise AssertionError(f"{name} differs from torch {release}'s "
+                                 f"record: {cell_fields(cell)}")
+        print(json.dumps({"dryrun": cell, "card": card}), flush=True)
+        cells.append(cell)
+    rec["dryrun_trace_s"] = [c["trace_s"] for c in cells]
     rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"mesh_phase": rec, "card": card}), flush=True)
-    print(json.dumps({"dryrun": cell, "card": card}), flush=True)
-    return rec, cell
+    return rec, cells
 
 
 # ---------------------------------------------------------------------------
@@ -3580,7 +3722,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     models = model_phase(dev, args.seed, card)
     trained, train_launches = train_phase(dev, args.seed, card)
-    meshed, cell = mesh_phase(dev, args.seed, card)
+    meshed, cells = mesh_phase(dev, args.seed, card)
     examples, example_launches = examples_phase(card)
     for row in rows:  # the training data path and the examples are paths
         row["launches"] += (train_launches[row["name"]]
@@ -3615,8 +3757,9 @@ def main(argv=None) -> int:
         "mesh": {"phase_s": meshed["phase_s"],
                  "allreduce_topk_ms": [r["ms"]
                                        for r in meshed["allreduce_topk"]],
-                 "dryrun": {k: cell[k] for k in ("arch", "shape", "memory",
-                                                 "fits_hbm")}},
+                 "dryrun": [{k: c[k] for k in ("arch", "shape", "mesh",
+                                               "memory", "fits_hbm")}
+                            for c in cells]},
         "examples": {r["example"]: r["wall_s"] for r in examples}}),
         flush=True)
     print(card, flush=True)

@@ -1,34 +1,55 @@
-"""Dry run of every (arch x shape) cell: build it on the meta device, trace
-one step, and record its roofline terms, with nothing allocated.
+"""Dry run of every (arch x shape) cell as one device of the production
+mesh: build the cell's rank-0 blocks on the meta device, trace one step,
+and record its per-device memory, roofline terms and collectives, with
+nothing allocated and no card needed.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_1p5b --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all            # 40-cell sweep
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi
 
 The reference lowers and compiles each cell for the production meshes
-(256 / 512 TPU chips) and reads XLA's memory and cost analyses. The
-port's nearest meaning, for one H100:
+(256 / 512 TPU chips: (16, 16) and (2, 16, 16), ``launch.mesh``) and reads
+XLA's per-device memory and cost analyses. The port runs each cell as
+rank 0 of a world of that many ranks on PyTorch's ``fake`` backend
+(``launch.mesh.fake_device_mesh``), in this one process:
 
-  * the cell's state, parameters, batch and cache are built on the
-    ``meta`` device (``build_cell``), with the reference's execution config
-    (``exec_config``: remat, q-chunking, grad accumulation, bf16 optimizer
-    state for the 235B config);
-  * one step (train / prefill / decode) runs on those meta tensors under
-    ``hlo_cost.Trace``: its FLOPs, bytes and collective bytes come from the
-    recorded aten ops (``hlo_cost.analyze``; collectives are 0 on one
-    device), and its peak live bytes from the storages the step holds at
-    once;
-  * the argument bytes per device come from the sharding rules' specs on
-    the shape-only production mesh (``distributed.sharding``);
-  * ``fits_hbm`` holds the step's peak on one device (arguments plus the
-    step's live bytes) against the card's memory
+  * the cell's state or parameters, batch and cache are DTensors on that
+    ``DeviceMesh``, laid out by the sharding rules' specs
+    (``distributed.sharding``: ``param_shardings``, ``batch_shardings``,
+    ``cache_shardings``), each built from its rank's local block on the
+    ``meta`` device (``build_cell``), with the reference's execution
+    config (``exec_config``: remat, q-chunking, grad accumulation, bf16
+    optimizer state for the 235B config, and the activation layout axes,
+    which now constrain: the residual stream, the vocab dim, the MoE's
+    expert parallelism over "model");
+  * one step (train / prefill / decode) runs on them under the mesh and
+    ``hlo_cost.Trace``, which records the rank's own program: its local
+    ops with local shapes and every collective it issues;
+  * the record takes the reference's per-device keys: ``memory``
+    (``argument_bytes``: the rank's blocks of the arguments;
+    ``temp_bytes``: the most bytes the step's own allocations hold at
+    once, its outputs among them, since an eager step allocates its
+    outputs as it goes; ``output_bytes``: the outputs that are not
+    arguments written in place; ``peak_estimate_bytes``: arguments plus
+    temporaries), ``cost`` (``flops_per_device``,
+    ``bytes_accessed_per_device``, ``hlo_cost.analyze``) and
+    ``collectives`` by type, counts and operand bytes;
+  * ``fits_hbm`` holds the per-device peak against the card's memory
     (``torch.cuda.get_device_properties``; without a card, the H100 80GB
     HBM3's 80 GB, ``H100_HBM_BYTES``).
 
-A cell whose step reads a value on the host (which a meta tensor has not)
-cannot be traced without data, and is recorded with ``"status": "error"``
-and its reason. Records go to ``artifacts/dryrun_torch/<arch>_<shape>_<mesh>.json``
-(``--out``); a record already there is kept.
+XLA-only fields are not kept: ``xla_cost_raw`` is XLA's own cost analysis
+(which counts a loop body once), and ``alias_bytes`` the donated buffers
+the compiled program writes its outputs into; an eager step updates its
+state and cache in place, so its peak has no alias term.
+
+DTensor reduces a ``Partial`` over both mesh dims as two all-reduces, one
+a dim, where XLA issues one over both; the record counts what the port
+issues. A cell whose step reads a value on the host (which a meta tensor
+has not) cannot be traced without data, and is recorded with
+``"status": "error"`` and its reason. Records go to
+``artifacts/dryrun_torch/<arch>_<shape>_<mesh>.json`` (``--out``); a
+record already there is kept.
 """
 from __future__ import annotations
 
@@ -46,6 +67,7 @@ from repro_torch import configs
 from repro_torch.distributed import sharding as Sh
 from repro_torch.launch import hlo_cost
 from repro_torch.launch.mesh import (activate_mesh, axis_sizes, data_axes,
+                                     fake_device_mesh, from_local,
                                      make_production_mesh)
 from repro_torch.models import model as M
 from repro_torch.train import optimizer as opt
@@ -84,7 +106,7 @@ _META = torch.device("meta")
 def exec_config(cfg: M.ModelConfig, shape: str, mesh,
                 arch: str = "") -> M.ModelConfig:
     """Execution-tuned config for a dry-run cell (remat + the activation
-    layout fields, which constrain nothing on one device)."""
+    layout fields)."""
     seq, gb, kind = configs.SHAPES[shape]
     sizes = axis_sizes(mesh)
     axes = data_axes(mesh)
@@ -113,9 +135,36 @@ def exec_config(cfg: M.ModelConfig, shape: str, mesh,
         score_seq_axis=None, vocab_axis=vocab_axis)
 
 
+def _block(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``leaf`` (a global meta tensor) as a DTensor on ``mesh`` laid out by
+    ``spec``, built from its rank's block, on the meta device."""
+    sizes = axis_sizes(mesh)
+    spec = tuple(spec) + (None,) * (leaf.ndim - len(spec))
+    shape = [n // math.prod(sizes[a] for a in (
+        e if isinstance(e, tuple) else (e,)) if a is not None)
+        for n, e in zip(leaf.shape, spec)]
+    local = torch.empty(shape, dtype=leaf.dtype, device=_META)
+    return from_local(local, mesh, Sh.P(*spec), like=leaf)
+
+
+def _laid_out(tree, specs, mesh):
+    """Every leaf of ``tree`` as ``_block`` of its spec; a ``ParamTree``
+    stays one (a ``TrainState``'s parameters trainable)."""
+    if isinstance(tree, torch.Tensor):
+        return _block(tree, specs, mesh)
+    out = pytree.map_tree(lambda leaf, spec: _block(leaf, spec, mesh),
+                          tree, specs)
+    if isinstance(tree, M.ParamTree):
+        return M.ParamTree(out)
+    if isinstance(tree, TS.TrainState):
+        return dataclasses.replace(
+            out, params=M.ParamTree(out.params).requires_grad_(True))
+    return out
+
+
 def build_cell(arch: str, shape: str, mesh):
-    """(step function, its meta arguments, their spec trees on ``mesh``,
-    the execution config); nothing is allocated."""
+    """(step function, its arguments as DTensors on ``mesh`` (a
+    ``DeviceMesh``), the execution config); nothing is allocated."""
     cfg = exec_config(configs.get_config(arch), shape, mesh, arch=arch)
     seq, gb, kind = configs.SHAPES[shape]
 
@@ -127,28 +176,29 @@ def build_cell(arch: str, shape: str, mesh):
             accum_dtype=torch.bfloat16 if big else torch.float32)
         state = TS.init_train_state(cfg, tcfg, None, _META)
         batch = configs.input_specs(cfg, shape)
-        specs = (Sh.param_shardings(state, mesh),
-                 Sh.batch_shardings(batch, mesh, gb))
-        return TS.make_train_step(cfg, tcfg), (state, batch), specs, cfg
+        args = (_laid_out(state, Sh.param_shardings(state, mesh), mesh),
+                _laid_out(batch, Sh.batch_shardings(batch, mesh, gb), mesh))
+        return TS.make_train_step(cfg, tcfg), args, cfg
 
     params = M.init_params(cfg, device=_META)
+    params = _laid_out(params, Sh.param_shardings(params, mesh), mesh)
     if kind == "prefill":
         batch = configs.input_specs(cfg, shape)
-        specs = (Sh.param_shardings(params, mesh),
-                 Sh.batch_shardings(batch, mesh, gb))
 
         def prefill(p, b):
             return M.forward(p, cfg, b, last_only=True)
-        return prefill, (params, batch), specs, cfg
+        return prefill, (params, _laid_out(
+            batch, Sh.batch_shardings(batch, mesh, gb), mesh)), cfg
 
     batch, cache, pos = configs.input_specs(cfg, shape)
-    specs = (Sh.param_shardings(params, mesh),
-             Sh.cache_shardings(cache, mesh, gb),
-             Sh.batch_shardings(batch, mesh, gb), Sh.P())
+    args = (params,
+            _laid_out(cache, Sh.cache_shardings(cache, mesh, gb), mesh),
+            _laid_out(batch, Sh.batch_shardings(batch, mesh, gb), mesh),
+            _laid_out(pos, Sh.P(), mesh))
 
     def decode(p, c, b, pos_):
         return M.decode_step(p, cfg, c, b, pos_)
-    return decode, (params, cache, batch, pos), specs, cfg
+    return decode, args, cfg
 
 
 def model_flops(cfg: M.ModelConfig, shape: str) -> float:
@@ -164,26 +214,23 @@ def model_flops(cfg: M.ModelConfig, shape: str) -> float:
     return 2.0 * n_active * gb  # decode: one token per sequence
 
 
-def _leaves(tree):
-    return [leaf for _, leaf in pytree.named_leaves(tree)]
+def _locals(tree):
+    """The rank's blocks of a tree's DTensor leaves (plain tensors as
+    they are)."""
+    from torch.distributed.tensor import DTensor
+    flat = [tree] if isinstance(tree, torch.Tensor) else pytree.leaves(tree)
+    return [t.to_local() if isinstance(t, DTensor) else t for t in flat
+            if isinstance(t, torch.Tensor)]
 
 
-def argument_bytes_per_device(args, specs, mesh) -> int:
-    """Bytes of the arguments on one device of ``mesh``, each leaf divided
-    by the product of the axis sizes its spec shards it over."""
-    sizes = axis_sizes(mesh)
-    total = 0
-    for arg, spec in zip(args, specs):
-        arg_leaves = _leaves(arg) if not isinstance(arg, torch.Tensor) \
-            else [arg]
-        spec_leaves = [s for _, s in pytree.named_leaves(
-            spec, leaf_types=(Sh.PartitionSpec,))]
-        for leaf, s in zip(arg_leaves, spec_leaves):
-            shards = math.prod(
-                sizes[a] for entry in s if entry is not None
-                for a in (entry if isinstance(entry, tuple) else (entry,)))
-            total += leaf.numel() * leaf.element_size() // shards
-    return total
+def _storage_bytes(tensors, skip=frozenset()) -> int:
+    """Bytes of the distinct storages of ``tensors`` not in ``skip``."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        if st._cdata not in skip:
+            seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
 
 
 def hbm_bytes() -> Dict[str, Any]:
@@ -195,31 +242,35 @@ def hbm_bytes() -> Dict[str, Any]:
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool) -> Dict[str, Any]:
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    shape_mesh = make_production_mesh(multi_pod=multi_pod)
     mesh_name = "multi" if multi_pod else "single"
     cfg0 = configs.get_config(arch)
     ok, why = configs.shape_applicable(cfg0, shape)
     rec: Dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mesh_name,
-                           "n_devices": mesh.size}
+                           "n_devices": shape_mesh.size}
     if not ok:
         rec["status"] = "skipped"
         rec["reason"] = why
         return rec
 
-    t0 = time.perf_counter()
-    fn, args, specs, cfg = build_cell(arch, shape, mesh)
-    t_build = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    with activate_mesh(mesh), hlo_cost.Trace() as trace:
-        fn(*args)
-    t_trace = time.perf_counter() - t1
+    with fake_device_mesh(shape_mesh) as mesh:
+        t0 = time.perf_counter()
+        fn, args, cfg = build_cell(arch, shape, mesh)
+        t_build = time.perf_counter() - t0
+        arg_blocks = [t for a in args for t in _locals(a)]
+        t1 = time.perf_counter()
+        with activate_mesh(mesh), hlo_cost.Trace() as trace:
+            out = fn(*args)
+        t_trace = time.perf_counter() - t1
+        out_blocks = _locals(out)
+        del out
     t2 = time.perf_counter()
     parsed = hlo_cost.analyze(trace)
     t_parse = time.perf_counter() - t2
 
-    arg_bytes = sum(leaf.numel() * leaf.element_size()
-                    for a in args for leaf in
-                    ([a] if isinstance(a, torch.Tensor) else _leaves(a)))
+    arg_bytes = _storage_bytes(arg_blocks)
+    out_bytes = _storage_bytes(out_blocks, skip={
+        t.untyped_storage()._cdata for t in arg_blocks})
     peak = arg_bytes + trace.peak_live_bytes
     hbm = hbm_bytes()
     rec.update({
@@ -228,16 +279,14 @@ def run_cell(arch: str, shape: str, multi_pod: bool) -> Dict[str, Any]:
         "trace_s": round(t_trace, 2),
         "aten_ops": len(trace.ops),
         "memory": {
-            "argument_bytes_per_device": argument_bytes_per_device(
-                args, specs, mesh),
-            "argument_bytes_one_device": arg_bytes,
-            "step_live_bytes_one_device": trace.peak_live_bytes,
-            "peak_estimate_bytes_one_device": peak,
+            "argument_bytes": arg_bytes,
+            "output_bytes": out_bytes,
+            "temp_bytes": trace.peak_live_bytes,
+            "peak_estimate_bytes": peak,
         },
-        # the whole step on one device, from the recorded aten ops
         "cost": {
-            "flops_one_device": parsed["flops"],
-            "bytes_accessed_one_device": parsed["bytes"],
+            "flops_per_device": parsed["flops"],
+            "bytes_accessed_per_device": parsed["bytes"],
             "parse_s": round(t_parse, 2),
         },
         "collectives": {
@@ -292,12 +341,12 @@ def main(argv: Optional[list] = None) -> int:
                     json.dump(rec, f, indent=1)
                 if rec["status"] == "ok":
                     m = rec["memory"]
-                    print(f"  ok: trace {rec['trace_s']}s, args/device "
-                          f"{m['argument_bytes_per_device'] / 2**30:.2f} GiB, "
-                          f"peak one device "
-                          f"{m['peak_estimate_bytes_one_device'] / 2**30:.2f}"
-                          f" GiB, flops {rec['cost']['flops_one_device']:.3e}",
-                          flush=True)
+                    print(f"  ok: trace {rec['trace_s']}s, peak/device "
+                          f"{m['peak_estimate_bytes'] / 2**30:.2f} GiB, "
+                          f"flops/device "
+                          f"{rec['cost']['flops_per_device']:.3e}, coll "
+                          f"{rec['collectives']['total_bytes'] / 2**30:.3f}"
+                          f" GiB", flush=True)
                 elif rec["status"] == "skipped":
                     print(f"  skipped: {rec['reason']}")
                 else:

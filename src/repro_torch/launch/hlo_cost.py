@@ -2,11 +2,18 @@
 traffic of the aten ops it runs.
 
 The reference parses XLA's compiled HLO text for the three roofline
-inputs. The port has no compiled program: it runs eagerly, one aten op at
-a time. Its nearest meaning is the ops themselves, recorded by a
-``TorchDispatchMode`` (``Trace``) while the port runs, on real, meta or
-fake tensors alike, and costed by the reference's accounting rules
-(``analyze``):
+inputs, per device of the mesh it compiled for. The port has no compiled
+program: it runs eagerly, one aten op at a time. Its nearest meaning is
+the ops themselves, recorded by a ``TorchDispatchMode`` (``Trace``) while
+the port runs, on real or meta tensors alike, and costed by the
+reference's accounting rules (``analyze``). On DTensors the trace records
+one rank's program: the local ops on its blocks, with their local shapes,
+and the collectives that move data between ranks (a DTensor
+redistribution's ``_c10d_functional`` / ``_dtensor`` ops, and the
+``c10d`` ops of ``launch.mesh``'s own ``all_gather`` / ``all_to_all``),
+each once per call. What DTensor runs to work out a result's global shape
+(its sharding propagation, on fake tensors) is no rank's work and is not
+recorded.
 
   * **flops**: dots (``mm``, ``bmm``, ``addmm``, ``baddbmm``, ``mv``,
     ``dot``; ``einsum`` and ``matmul`` reach these) count 2 · result
@@ -25,20 +32,22 @@ fake tensors alike, and costed by the reference's accounting rules
     its update; ``copy_`` reads its source and writes its destination; a
     fill writes its result; ``empty`` moves nothing.
   * **collectives**: the operand bytes of each c10d op, under the
-    reference's names (``all-gather``, ``all-reduce``, …).
+    reference's names (``all-gather``, ``all-reduce``, …). A handle on a
+    collective's result (``wait_tensor``, ``_wrap_tensor_autograd``)
+    moves nothing, as a view.
 
 There is no loop trip-count multiplication: eager execution records every
 iteration of a layer loop as ops of its own.
 """
 from __future__ import annotations
 
+import functools
 import math
 import weakref
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute", "collective-broadcast")
@@ -58,7 +67,9 @@ _COLLECTIVE_OF = {
     "all_to_all_single": "all-to-all",
     "send": "collective-permute", "recv_": "collective-permute",
     "broadcast_": "collective-broadcast", "broadcast": "collective-broadcast",
+    "shard_dim_alltoall": "all-to-all",  # DTensor's Shard(i) -> Shard(j)
 }
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "_dtensor")
 _DOTS = {"mm": 0, "bmm": 0, "mv": 0, "dot": 0, "addmm": 1, "baddbmm": 1,
          "addmv": 1}  # -> index of the operand whose last dim is K
 _SOFTMAX = {"_softmax": 5, "_log_softmax": 5}
@@ -73,7 +84,8 @@ _FILLS = {"zeros", "ones", "full", "zeros_like", "ones_like", "full_like",
           "new_ones", "new_full"}
 _ALLOCS = {"empty", "empty_like", "empty_strided", "new_empty",
            "new_empty_strided"}
-_VIEWS = {"_unsafe_view"}  # schema says a fresh tensor; it aliases
+# schemas that say a fresh tensor, where the result aliases its operand
+_VIEWS = {"_unsafe_view", "wait_tensor", "_wrap_tensor_autograd"}
 
 
 class Op(NamedTuple):
@@ -86,13 +98,32 @@ class Op(NamedTuple):
     outs: Tuple[Tuple[Tuple[int, ...], int], ...]
 
 
-def _kind(func) -> str:
+@functools.lru_cache(maxsize=None)
+def _op_info(func) -> Tuple[str, str, bool, Tuple[bool, ...]]:
+    """(name, kind, whether its results are fresh storage, which of its
+    positional arguments are operands) of an op, once an op."""
     name = func.overloadpacket.__name__
-    if func.namespace in ("c10d", "_c10d_functional"):
-        return "collective" if name in _COLLECTIVE_OF else "other"
+    kind = _kind(func, name)
+    fresh = kind != "view" and not any(
+        r.alias_info is not None and r.alias_info.is_write
+        for r in func._schema.returns)
+    # a collective's operands: what it sends, not the buffers it receives
+    # into (``output*``; c10d's schemas carry no alias marks)
+    sends = tuple(not (kind == "collective" and a.name.startswith("output"))
+                  for a in func._schema.arguments)
+    return name, kind, fresh, sends
+
+
+def _kind(func, name: str) -> str:
+    if func.namespace in _COLLECTIVE_NAMESPACES:
+        if name in _COLLECTIVE_OF:
+            return "collective"
+        return "view" if name in _VIEWS else "other"
     if name in _DOTS:
         return "dot"
-    if name in _VIEWS or _aliases(func):
+    if name in _VIEWS or any(r.alias_info is not None
+                             and not r.alias_info.is_write
+                             for r in func._schema.returns):
         return "view"
     if name in _SOFTMAX:
         return "softmax"
@@ -113,26 +144,43 @@ def _kind(func) -> str:
     return "other"
 
 
-def _aliases(func) -> bool:
-    """A view op: a result aliases an operand without writing it."""
-    return any(r.alias_info is not None and not r.alias_info.is_write
-               for r in func._schema.returns)
-
-
-def _writes_in_place(func) -> bool:
-    return any(r.alias_info is not None and r.alias_info.is_write
-               for r in func._schema.returns)
+def _tensors(tree, out: list) -> list:
+    """The tensors in an op's arguments or results (nested tuples, lists
+    and dicts), in order."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
 
 
 def _sig(t: torch.Tensor) -> Tuple[Tuple[int, ...], int]:
     return tuple(t.shape), t.element_size()
 
 
+@functools.lru_cache(maxsize=None)
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _in_fake_mode() -> bool:
+    """A ``FakeTensorMode`` is active: DTensor's sharding propagation runs
+    the op on global-shape fake tensors to learn its result's shape."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 class Trace(TorchDispatchMode):
     """Records every aten op run inside it (``ops``), and the bytes of the
     storages its ops allocate that are alive at once: ``peak_live_bytes``
     is their most, over what was alive when the trace began (arguments are
-    not counted)."""
+    not counted). An op on DTensors is left to DTensor, whose local ops
+    and collectives come back here: the trace is one rank's."""
 
     def __init__(self):
         super().__init__()
@@ -140,26 +188,29 @@ class Trace(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_live_bytes = 0
         self._refs: Dict[int, List[int]] = {}  # storage -> [refs, bytes]
+        # id(weak reference to a result) -> (the reference, its storage)
+        self._holders: Dict[int, Tuple[weakref.ref, int]] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        dtensor = _dtensor_type()
+        if any(issubclass(t, dtensor) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
-        kind = _kind(func)
-        operands = (args, kwargs)
-        if kind == "collective":  # its operands: what it sends, not the
-            # buffers it receives into (``output*``; c10d's schemas carry
-            # no alias marks)
-            operands = [a for a, spec in zip(args, func._schema.arguments)
-                        if not spec.name.startswith("output")]
+        if _in_fake_mode():
+            return out
+        name, kind, fresh, sends = _op_info(func)
+        operands = _tensors([a for a, s in zip(args, sends) if s], [])
+        if kind != "collective":
+            _tensors(kwargs, operands)
         seen, ins = set(), []
-        for t in tree_flatten(operands)[0]:
-            if isinstance(t, torch.Tensor) and id(t) not in seen:
+        for t in operands:
+            if id(t) not in seen:
                 seen.add(id(t))
                 ins.append(_sig(t))
-        outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
-        self.ops.append(Op(func.overloadpacket.__name__, kind, tuple(ins),
+        outs = _tensors(out, [])
+        self.ops.append(Op(name, kind, tuple(ins),
                            tuple(_sig(t) for t in outs)))
-        fresh = kind != "view" and not _writes_in_place(func)
         for t in outs:
             self._hold(t, fresh)
         return out
@@ -173,9 +224,11 @@ class Trace(TorchDispatchMode):
             self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
         if key in self._refs:
             self._refs[key][0] += 1
-            weakref.finalize(t, self._release, key)
+            holder = weakref.ref(t, self._release)
+            self._holders[id(holder)] = (holder, key)
 
-    def _release(self, key: int) -> None:
+    def _release(self, holder: weakref.ref) -> None:
+        _, key = self._holders.pop(id(holder))
         ref = self._refs[key]
         ref[0] -= 1
         if ref[0] == 0:

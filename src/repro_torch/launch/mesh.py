@@ -7,10 +7,14 @@ The reference builds ``jax`` meshes of the production topology (TPU v5e):
   multi-pod  : (2, 16, 16)   axes ("pod", "data", "model")  — 512 chips
 
 Batch shards over ("pod", "data"); model-parallel dims over "model".
-One H100 cannot hold a 256-device mesh, and nothing on it needs one: the
-sharding rules (``distributed/sharding.py``) read only a mesh's axis names
-and sizes. So ``make_production_mesh`` returns a ``ShapeMesh``, that
-shape and nothing more, as the reference's tests duck-type one.
+The sharding rules (``distributed/sharding.py``) read only a mesh's axis
+names and sizes, so ``make_production_mesh`` returns a ``ShapeMesh``,
+that shape and nothing more, as the reference's tests duck-type one.
+``fake_device_mesh`` turns it into a ``DeviceMesh`` of that many ranks on
+PyTorch's ``fake`` backend, in this one process: rank 0 of it runs the
+program on its own local blocks (meta tensors), and every collective is
+issued and answered without moving data. That is the dry run's view of
+one device of the production mesh (``launch/dryrun.py``).
 
 A real mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the
 ranks of the default process group (``make_mesh_compat``).
@@ -124,6 +128,43 @@ def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
     if multi_pod:
         return ShapeMesh((2, 16, 16), ("pod", "data", "model"))
     return ShapeMesh((16, 16), ("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: ShapeMesh):
+    """A ``DeviceMesh`` of ``mesh``'s shape and axis names over a world of
+    ``mesh.size`` ranks on the ``fake`` backend, this process being rank 0,
+    for the ``with`` body; the world is destroyed on exit, so a real world
+    (NCCL, gloo) can be set up afterwards in the same process. A world of
+    ``mesh.size`` that already exists is used as it is and kept.
+
+    The mesh's device type is ``cpu``, with or without a card: DTensor
+    works out a result's shape on fake tensors of the mesh's device type,
+    and a CPU build of PyTorch cannot run that for a backward on ``cuda``
+    ones. On a ``cpu``
+    mesh DTensor moves a block from one split dim to another
+    (``Shard(i)`` -> ``Shard(j)``) as an all-gather and a slice, where a
+    card mesh issues an all-to-all of the same operand. The fake backend
+    and its ``FakeStore`` come from PyTorch's private module
+    ``torch.testing._internal.distributed.fake_pg``, which registers the
+    backend (torch 2.11 and 2.13 alike)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    own = not dist.is_initialized()
+    if own:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=mesh.size)
+    elif dist.get_world_size() != mesh.size:
+        raise RuntimeError(
+            f"a {tuple(mesh.shape.values())} mesh needs a world of "
+            f"{mesh.size} ranks; a process group of "
+            f"{dist.get_world_size()} exists")
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.shape.values()),
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        if own:
+            dist.destroy_process_group()
 
 
 def make_host_mesh(device: DeviceLike = None):

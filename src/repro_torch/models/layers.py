@@ -143,8 +143,31 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not isinstance(w, DTensor):
         return torch.einsum("bld,dhk->blhk", x, w)
     d, h, k = w.shape
-    y = torch.einsum("bld,dn->bln", x, _whole(w, 2).reshape(d, h * k))
+    y = torch.einsum("bld,dn->bln", x, _folded(_whole(w, 2), 1, 2))
     return batch_split(y).unflatten(-1, (h, k))
+
+
+def _folded(t: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """``t`` with dims ``start``..``end`` folded into one, for a product.
+    A DTensor's gradient comes back laid out as the folded value (a
+    redistribution to its own placements), which unfolds: the product's
+    own gradient layout may split the folded dim where its first factor
+    (the heads) does not divide the mesh axis."""
+    from torch.distributed.tensor import DTensor
+    t = t.flatten(start, end)
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, t.placements)
+
+
+def _out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bqhk,hkd->bqd")``; on DTensors one [b, q, h * hd] x
+    [h * hd, d] product of ``_folded`` operands."""
+    from torch.distributed.tensor import DTensor
+    wo = _whole(wo, 1)
+    if not isinstance(o, DTensor):
+        return torch.einsum("bqhk,hkd->bqd", o, wo)
+    return torch.einsum("bqn,nd->bqd", _folded(o, 2, 3), _folded(wo, 0, 1))
 
 
 def _project_qkv(params: Params, x: torch.Tensor):
@@ -169,6 +192,18 @@ def _whole(w: torch.Tensor, dim: int) -> torch.Tensor:
         return w
     return w.redistribute(w.device_mesh, tuple(
         Replicate() if p == Shard(dim) else p for p in w.placements))
+
+
+def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, created by the call, as a replicated DTensor when ``like``
+    is a DTensor: the masks and states it yields are saved for the
+    backward pass, which runs outside ``implicit_replication``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
 
 
 def batch_split(t: torch.Tensor) -> torch.Tensor:
@@ -232,8 +267,7 @@ def causal_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
     else:
         o = attend(qg, positions)
     o = batch_split(o.reshape(b, l, n_heads, hd))
-    return batch_split(torch.einsum("bqhk,hkd->bqd", o,
-                                    _whole(params["wo"], 1)))
+    return batch_split(_out_project(o, params["wo"]))
 
 
 def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,

@@ -422,19 +422,7 @@ def embed_inputs(params: ParamTree, cfg: ModelConfig,
     else:
         x = _lookup(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    return x, _replicated(positions, x)
-
-
-def _replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``t``, created by the call, as a replicated DTensor when ``like``
-    is a DTensor: the masks it yields are saved for the backward pass,
-    which runs outside ``implicit_replication``."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(like, DTensor):
-        return t
-    mesh = like.device_mesh
-    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
-                              run_check=False)
+    return x, L.replicated(positions, x)
 
 
 def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -446,15 +434,18 @@ def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     result is a partial sum over the vocab's mesh dims, laid out over the
     others as the ids are."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     if not isinstance(table, DTensor):
         return table[ids]
     mesh = table.device_mesh
     vocab = [p == Shard(0) for p in table.placements]
     rows_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
-    _, (lo, _) = compute_local_shape_and_global_offset(
-        table.shape, mesh, rows_pl)
+    # the first row of this rank's block, by DTensor's chunking: blocks of
+    # ceil(rows / ranks) over the vocab's mesh dims, in mesh order
+    lo, n = 0, table.shape[0]
+    for d in (d for d, v in enumerate(vocab) if v):
+        size, r = -(-n // mesh.size(d)), mesh.get_local_rank(d)
+        lo += min(r * size, n)
+        n = max(0, min(size, n - r * size))
     if isinstance(ids, DTensor):
         id_pl = tuple(Replicate() if v else p
                       for v, p in zip(vocab, ids.placements))
@@ -490,9 +481,18 @@ def _head(params: ParamTree, cfg: ModelConfig, x: torch.Tensor,
           constrain: bool = False):
     """Logits; ``constrain`` lays them out with the vocab dim over
     ``vocab_axis`` (the forward's, not decode's, as in the reference)."""
+    from torch.distributed.tensor import DTensor
     x = rmsn(params["ln_f"], L.batch_split(x))
     if cfg.family == "audio":
-        logits = torch.einsum("bld,cvd->blcv", x, params["lm_heads"])
+        heads = params["lm_heads"]
+        if isinstance(heads, DTensor):
+            # one product a codebook, its vocab laid out as the head's:
+            # the einsum folds (codebook, vocab) into one dim, which
+            # unfolds only where it is not split
+            logits = torch.stack([torch.einsum("bld,vd->blv", x, heads[c])
+                                  for c in range(heads.shape[0])], dim=2)
+        else:
+            logits = torch.einsum("bld,cvd->blcv", x, heads)
     else:
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         logits = torch.einsum("bld,vd->blv", x, head)
@@ -570,8 +570,8 @@ def loss_fn(params: ParamTree, cfg: ModelConfig,
     with _on_mesh(params["embed"], *batch.values()):
         labels = batch["labels"].long()
         logits = logits.float()
-        vocab = _replicated(torch.arange(logits.shape[-1],
-                                         device=logits.device), logits)
+        vocab = L.replicated(torch.arange(logits.shape[-1],
+                                          device=logits.device), logits)
         if cfg.padded_vocab != cfg.vocab_size:
             logits = torch.where(vocab >= cfg.vocab_size, -1e9, logits)
         logz = torch.logsumexp(logits, dim=-1)

@@ -31,8 +31,9 @@ import torch
 
 from repro_torch.launch.mesh import (P, shard_map_compat,
                                      with_sharding_constraint)
-from repro_torch.models.layers import (_normal, batch_split, init_rmsnorm,
-                                       rmsnorm, silu)
+from repro_torch.models.layers import (_folded, _normal, batch_split,
+                                       init_rmsnorm, replicated, rmsnorm,
+                                       silu)
 
 Params = Mapping[str, Any]
 
@@ -199,7 +200,7 @@ def mamba2(params: Params, x: torch.Tensor, chunk: int = 64,
     y = y[:, :l]
     y = y + xc.reshape(b, l, n_heads, head_dim).float() \
         * params["D"][None, None, :, None]
-    y = y.reshape(b, l, d_inner).to(x.dtype)
+    y = _folded(y, 2, 3).to(x.dtype)
     y = rmsnorm(params["norm"], y) * silu(z)
     return batch_split(torch.einsum("bli,id->bld", y, params["out_proj"]))
 
@@ -291,12 +292,15 @@ def mlstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     h_in, z = torch.chunk(up, 2, dim=-1)
     d_inner = h_in.shape[-1]
     head_dim = d_inner // n_heads
-    q = torch.einsum("bli,ij->blj", h_in, params["wq"]).reshape(
-        b, l, n_heads, head_dim)
-    k = torch.einsum("bli,ij->blj", h_in, params["wk"]).reshape(
-        b, l, n_heads, head_dim)
-    v = torch.einsum("bli,ij->blj", h_in, params["wv"]).reshape(
-        b, l, n_heads, head_dim)
+    # on DTensors each projection is gathered to the batch layout before
+    # its heads are split off: a split (heads, head_dim) dim unfolds only
+    # where the heads divide the model axis
+    q = batch_split(torch.einsum("bli,ij->blj", h_in, params["wq"])
+                    ).reshape(b, l, n_heads, head_dim)
+    k = batch_split(torch.einsum("bli,ij->blj", h_in, params["wk"])
+                    ).reshape(b, l, n_heads, head_dim)
+    v = batch_split(torch.einsum("bli,ij->blj", h_in, params["wv"])
+                    ).reshape(b, l, n_heads, head_dim)
     gates = torch.einsum("bli,ig->blg", h_in.float(), params["w_if"]) \
         + params["b_if"]
     i_pre, f_pre = torch.chunk(gates, 2, dim=-1)  # [b,l,h]
@@ -304,7 +308,8 @@ def mlstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     cum_f = torch.cumsum(log_f, dim=1)  # [b,l,h]
     # D[t,s] = F[t] - F[s] + i[s], s <= t; masked BEFORE exp
     Dm = cum_f[:, :, None, :] - cum_f[:, None, :, :] + i_pre[:, None, :, :]
-    tri = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    tri = replicated(torch.ones(l, l, dtype=torch.bool,
+                                device=x.device).tril(), x)
     Dm = torch.where(tri[None, :, :, None], Dm, -math.inf)
     m = torch.amax(Dm, dim=2, keepdim=True)  # stabilizer [b,l,1,h]
     Dexp = torch.exp(Dm - m)
@@ -314,7 +319,7 @@ def mlstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     norm = torch.maximum(torch.abs(torch.sum(S, dim=2, keepdim=True)),
                          torch.exp(-m))  # [b,l,1,h]
     y = torch.einsum("blsh,bshk->blhk", S / norm, v.float())
-    y = y.reshape(b, l, d_inner).to(x.dtype)
+    y = _folded(y, 2, 3).to(x.dtype)
     y = rmsnorm(params["norm"], y) * silu(z)
     return batch_split(torch.einsum("bli,id->bld", y, params["down_proj"]))
 
@@ -429,7 +434,8 @@ def slstm(params: Params, x: torch.Tensor) -> torch.Tensor:
     x = batch_split(x)
     b, l, d = x.shape
     xw = torch.einsum("bld,dg->blg", x, params["w_x"])  # [b,l,4d]
-    state = slstm_init_state(params, b, d, x.device)
+    state = {k: replicated(v, x) for k, v in
+             slstm_init_state(params, b, d, x.device).items()}
     hs = []
     for t in range(l):
         state = _slstm_cell(params, state, xw[:, t])

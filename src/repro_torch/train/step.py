@@ -64,9 +64,20 @@ def state_for(params: M.ParamTree, tcfg: TrainConfig) -> TrainState:
 
 
 def _split_microbatches(batch: Mapping[str, torch.Tensor], k: int):
-    """[B, ...] -> k microbatches of [B/k, ...] per leaf."""
+    """[B, ...] -> k microbatches of [B/k, ...] per leaf: microbatch i is
+    rows [i B/k, (i + 1) B/k), the reference's split. A DTensor leaf laid
+    out over its batch rows is gathered whole first (DTensor cannot fold
+    a split dim into two), and each microbatch is laid out as the leaf
+    was."""
+    from torch.distributed.tensor import DTensor, Replicate
+
     def sp(x):
         b = x.shape[0]
+        if isinstance(x, DTensor):
+            whole = x.redistribute(x.device_mesh, (Replicate(),) * len(
+                x.placements)).reshape((k, b // k) + tuple(x.shape[1:]))
+            return [whole[i].redistribute(x.device_mesh, x.placements)
+                    for i in range(k)]
         return x.reshape((k, b // k) + tuple(x.shape[1:]))
     split = {name: sp(x) for name, x in batch.items()}
     return [{name: x[i] for name, x in split.items()} for i in range(k)]
@@ -96,8 +107,7 @@ def make_train_step(cfg: M.ModelConfig, tcfg: TrainConfig
             loss, g = value_and_grad(params, mb)
             if g_sum is None:
                 g_sum = pytree.map_tree(
-                    lambda x: torch.zeros(x.shape, dtype=tcfg.accum_dtype,
-                                          device=x.device), g)
+                    lambda x: torch.zeros_like(x, dtype=tcfg.accum_dtype), g)
             loss_sum = loss_sum + loss
             g_sum = pytree.map_tree(lambda a, x: a + x.to(a.dtype), g_sum, g)
         inv = 1.0 / tcfg.grad_accum

@@ -1,6 +1,7 @@
 """Twins of ``repro.launch.hlo_cost`` and ``repro.launch.dryrun`` in the
 port (``repro_torch.launch.hlo_cost`` over recorded aten ops,
-``repro_torch.launch.dryrun`` on the meta device), on the CPU.
+``repro_torch.launch.dryrun`` as one rank of the production mesh), on the
+CPU.
 
 * ``hlo_cost.analyze`` on tiny programs against the reference's
   ``analyze(jit(f).lower(...).compile().as_text())``: FLOPs equal for a
@@ -14,19 +15,33 @@ port (``repro_torch.launch.hlo_cost`` over recorded aten ops,
 * Collectives: ``allreduce_topk`` traced on a gloo world of one, its
   all-gather and all-reduce bytes and counts under the reference's names.
 * A smoke forward's dot FLOPs equal to an analytic count.
-* ``run_cell`` with ``status == "ok"`` on two full-size cells, every op
-  on the meta device; the CLI's records, skips and errors.
+* Per device on a (2, 4) mesh: the port as rank 0 of a fake world of
+  eight (``tests/torch_dryrun_twins.py``), the reference compiled for
+  eight forced host devices in a subprocess. A lone sharded matmul's
+  FLOPs, bytes and all-reduce equal; the mini train cell's argument bytes
+  equal, collectives on both sides, dot FLOPs each held to its own
+  analytic count; the expert-parallel body's all-gathers and all-to-alls,
+  counts and bytes, equal forward and backward.
+* ``run_cell`` with ``status == "ok"`` on three full-size cells as rank 0
+  of the (16, 16) mesh, every op of the rank on the meta device; the
+  (2, 16, 16) record of qwen2-1.5b x decode_32k equal to the one
+  ``chip_smoke.py`` holds the card's run to; the CLI's records, skips and
+  errors.
 """
 import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 import torch.distributed as dist
-from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+import torch_dryrun_twins as Twins
+import torch_mesh_world as W
 from repro.launch import hlo_cost as RH
 from repro_torch import configs as TC
 from repro_torch.distributed import compression as TComp
@@ -146,34 +161,240 @@ def test_smoke_forward_dot_flops_equal_the_analytic_count():
     assert got == cfg.n_layers * per_layer + head
 
 
-class _OnlyMeta(TorchDispatchMode):
-    """Fails on any op whose tensors are not on the meta device."""
+# ---- per device on a (2, 4) mesh: the port's fake world of eight against
+# the reference compiled for eight forced host devices ----------------------
+
+_REF = r"""
+import dataclasses, json, re, sys
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro import configs
+from repro.distributed import sharding as Sh
+from repro.launch import hlo_cost as H
+from repro.launch.mesh import activate_mesh, make_mesh_compat
+from repro.models import layers as L
+from repro.train import optimizer as opt, step as TS
+assert len(jax.devices()) == 8
+mini = {k: tuple(v) if isinstance(v, list) else v
+        for k, v in json.loads(sys.argv[1]).items()}
+mesh = make_mesh_compat((2, 4), ("data", "model"))
+f32 = lambda *s: jax.ShapeDtypeStruct(s, jnp.float32)
+res = {}
+
+
+def named(tree):
+    return jax.tree.map(lambda s: NamedSharding(mesh, s), tree,
+                        is_leaf=lambda s: isinstance(s, P))
+
+
+def costs(compiled, body_only=False):
+    hlo = compiled.as_text()
+    if body_only:  # collectives GSPMD adds around the shard_map body
+        hlo = "\n".join(ln if "shard_map" in ln else re.sub(
+            r"\b(all-gather|all-to-all|all-reduce|reduce-scatter)\(",
+            r"\1x(", ln) for ln in hlo.splitlines())
+    got = H.analyze(hlo)
+    # renamed, a dot is no op the parse knows: the difference is the dots'
+    got["dot_flops"] = got["flops"] - H.analyze(
+        re.sub(r"\bdot\(", "dotx(", hlo))["flops"]
+    got["argument_bytes"] = compiled.memory_analysis().argument_size_in_bytes
+    return got
+
+
+with activate_mesh(mesh):
+    res["matmul"] = costs(jax.jit(
+        lambda a, b: a @ b,
+        in_shardings=named((P("data", "model"), P("model", None))),
+        out_shardings=named(P("data", None))).lower(
+            f32(8, 16), f32(16, 32)).compile())
+
+cfg = dataclasses.replace(configs.get_smoke_config("qwen2_1p5b"), **mini)
+tcfg = TS.TrainConfig(adamw=opt.AdamWConfig())
+state = jax.eval_shape(lambda k: TS.init_train_state(cfg, tcfg, k),
+                       jax.random.PRNGKey(0))
+i32 = jax.ShapeDtypeStruct((8, 64), jnp.int32)
+batch = {"tokens": i32, "labels": i32}
+sh = named(Sh.param_shardings(state, mesh))
+with activate_mesh(mesh):
+    res["train"] = costs(jax.jit(
+        TS.make_train_step(cfg, tcfg),
+        in_shardings=(sh, named(Sh.batch_shardings(batch, mesh, 8))),
+        out_shardings=(sh, NamedSharding(mesh, P())),
+        donate_argnums=(0,)).lower(state, batch).compile())
+
+p = jax.eval_shape(lambda k: L.init_moe(k, 16, 32, 6, jnp.float32,
+                                        n_padded=8), jax.random.PRNGKey(6))
+p_sh = named({"router": P(None, None), "w_gate": P("model", "data", None),
+              "w_up": P("model", "data", None),
+              "w_down": P("model", None, "data")})
+x_sh = named(P("data", "model", None))
+
+
+def moe(p_, x_):
+    return L.moe(p_, x_, 2, 100.0, group_axes=("data",), expert_axis="model")
+
+
+def loss(p_, x_):
+    y, aux = moe(p_, x_)
+    return jnp.sum(y) + aux
+
+
+with activate_mesh(mesh):
+    for name, fn in (("ep_fwd", moe),
+                     ("ep_fwd_bwd", jax.grad(loss, argnums=(0, 1)))):
+        res[name] = costs(jax.jit(fn, in_shardings=(p_sh, x_sh)).lower(
+            p, f32(4, 16, 16)).compile(), body_only=True)
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref():
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))), "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _REF, json.dumps({**W.MINI, **W.MINI_AXES})],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def port():
+    return Twins.run_all()
+
+
+def _colls(rec, *types):
+    return {(k, c): rec[f"collective_{k}_by_type"][c]
+            for k in ("count", "bytes") for c in types}
+
+
+def test_sharded_matmul_per_device_equals_the_reference(ref, port):
+    """[4, 4] x [4, 32] blocks a device, then one all-reduce of the
+    [4, 32] partial sums over the model axis."""
+    got, want = port["matmul"], ref["matmul"]
+    assert got["flops"] == want["flops"] == 2.0 * 4 * 32 * 4
+    assert got["bytes"] == want["bytes"] == 4 * (
+        4 * 4 + 4 * 32 + 4 * 32 + 2 * 4 * 32)
+    assert got["argument_bytes"] == want["argument_bytes"] == 4 * (
+        4 * 4 + 4 * 32)
+    for key in ("collective_count_by_type", "collective_bytes_by_type"):
+        assert got[key] == want[key]
+    assert got["collective_count_by_type"]["all-reduce"] == 1
+    assert got["collective_bytes_by_type"]["all-reduce"] == 4 * 4 * 32
+
+
+def test_mini_train_cell_per_device_against_the_reference(ref, port):
+    """The reference's mini dry-run cell on (2, 4): the same arguments a
+    device; collectives on both sides (GSPMD's and DTensor's own choice
+    of them); dot FLOPs each held to its own count. The reference splits
+    every product of the step over the eight devices: its count times
+    eight is the step's on one device (the port's, without a mesh). The
+    port splits every product over the eight ranks but two, which each
+    model rank computes whole for its batch rows: the attention's scores
+    and its weighted sum (``batch_split`` keeps a layer's attention whole
+    but for its batch), and the output projection's weight gradient (its
+    operand, the attention output, is whole over the model axis)."""
+    got, want = port["train"], ref["train"]
+    assert got["argument_bytes"] == want["argument_bytes"] > 0
+    assert got["collective_bytes_by_type"]["all-gather"] > 0
+    assert want["collective_bytes_by_type"]["all-gather"] > 0
+    one = got["one_device_dot_flops"]
+    assert want["dot_flops"] * 8 == one
+    cfg, _, batch = Twins.mini_train_cell()
+    b, l = batch["tokens"].shape
+    hh = cfg.n_heads * cfg.hd
+    # fwd, remat's recompute and two products of the backward each
+    attention = cfg.n_layers * 4 * 2 * (2 * b * l * l * hh)
+    wo_grad = cfg.n_layers * 2 * hh * b * l * cfg.d_model
+    whole = attention + wo_grad
+    assert got["dot_flops"] == (one - whole) / 8 + whole / 2
+
+
+@pytest.mark.parametrize("case", ["ep_fwd", "ep_fwd_bwd"])
+def test_expert_parallel_body_collectives_equal_the_reference(ref, port,
+                                                              case):
+    """The body's three FSDP all-gathers and its two tiled all-to-alls
+    (two more for the gradient), counts and operand bytes a device. The
+    reference's count is of its ``shard_map`` body: GSPMD gathers the
+    routing around it, which the port runs inside the body. A gathered
+    weight's gradient is a reduce-scatter in the reference; the port
+    all-reduces it and keeps its block (``launch.mesh._AllGather``, which
+    the gloo world runs too)."""
+    types = ("all-gather", "all-to-all")
+    assert _colls(port[case], *types) == _colls(ref[case], *types)
+    n = 2 * (1 + (case == "ep_fwd_bwd"))
+    assert port[case]["collective_count_by_type"]["all-to-all"] == n
+    assert port[case]["collective_count_by_type"]["all-gather"] == 3
+    assert ref[case]["collective_count_by_type"]["reduce-scatter"] == (
+        3 if case == "ep_fwd_bwd" else 0)
+
+
+class _MetaTrace(TH.Trace):
+    """``Trace`` that fails on any op of the rank whose tensors are not on
+    the meta device (DTensor's shape propagation runs on fake tensors)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is NotImplemented or TH._in_fake_mode():
+            return out
         for t in tree_flatten((args, kwargs, out))[0]:
             if isinstance(t, torch.Tensor):
                 assert t.device.type == "meta", (func, t.device)
         return out
 
 
-@pytest.mark.parametrize("arch,shape", [("qwen2_1p5b", "decode_32k"),
-                                        ("smollm_360m", "prefill_32k")])
-def test_run_cell_traces_full_size_cells_on_meta(arch, shape):
-    with _OnlyMeta():
-        rec = D.run_cell(arch, shape, multi_pod=False)
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2_1p5b", "decode_32k"), ("smollm_360m", "prefill_32k"),
+    ("granite_moe_3b_a800m", "prefill_32k")])
+def test_run_cell_traces_full_size_cells_on_meta(arch, shape, monkeypatch):
+    monkeypatch.setattr(D.hlo_cost, "Trace", _MetaTrace)
+    rec = D.run_cell(arch, shape, multi_pod=False)
     assert rec["status"] == "ok", rec
     assert rec["n_devices"] == 256
+    assert not dist.is_initialized()  # the fake world is gone
     mem = rec["memory"]
-    assert 0 < mem["argument_bytes_per_device"] < \
-        mem["argument_bytes_one_device"]
-    assert mem["peak_estimate_bytes_one_device"] == \
-        mem["argument_bytes_one_device"] + mem["step_live_bytes_one_device"]
-    assert rec["fits_hbm"] is False  # a 32k context at batch 128 / 32
+    assert 0 < mem["output_bytes"] <= mem["temp_bytes"]
+    assert mem["peak_estimate_bytes"] == \
+        mem["argument_bytes"] + mem["temp_bytes"]
+    if (arch, shape) == ("qwen2_1p5b", "decode_32k"):
+        # the sharding rules' specs a device, as before the mesh
+        assert mem["argument_bytes"] == 482_111_012
+    assert rec["fits_hbm"] is (mem["peak_estimate_bytes"] <= D.H100_HBM_BYTES)
     assert rec["hbm"]["bytes"] == D.H100_HBM_BYTES
-    assert rec["cost"]["flops_one_device"] > rec["model_flops_global"] > 0
-    assert rec["collectives"]["total_bytes"] == 0
+    assert rec["cost"]["flops_per_device"] > rec["model_flops_global"] / 256
+    coll = rec["collectives"]
+    assert coll["total_bytes"] > 0
+    assert (coll["count_by_type"]["all-to-all"] > 0) is arch.startswith(
+        "granite")  # the expert-parallel body's exchanges
     json.dumps(rec)
+
+
+def test_multi_pod_record_equals_the_card_record():
+    """qwen2-1.5b x decode_32k on the (2, 16, 16) mesh, 512 ranks: the
+    record ``chip_smoke.py`` requires of the card's run under this torch
+    release, but for the timings and the memory the card reports. The
+    releases' records share every field the sharding rules fix and the
+    EP body's own exchanges; DTensor's redistributions are their own."""
+    import chip_smoke
+    arch, shape, mesh = chip_smoke.MESH_CELLS[1]
+    rec = D.run_cell(arch, shape, multi_pod=mesh == "multi")
+    assert rec["n_devices"] == 512
+    records = chip_smoke.MESH_CELL_RECORDS
+    assert chip_smoke.cell_fields(rec) == \
+        records[torch.__version__.split("+")[0]][1]
+    for cells in zip(*records.values()):
+        for key in ("arch", "shape", "mesh", "n_devices", "status",
+                    "model_flops_global", "act_seq_axis", "remat",
+                    "fits_hbm"):
+            assert len({c[key] for c in cells}) == 1, key
+        for key in ("argument_bytes", "output_bytes"):
+            assert len({c["memory"][key] for c in cells}) == 1, key
+        for key in ("count_by_type", "bytes_by_type"):
+            assert len({c["collectives"][key]["all-to-all"]
+                        for c in cells}) == 1, key
 
 
 def test_cli_writes_records_skips_and_errors(tmp_path, monkeypatch):
@@ -189,8 +410,8 @@ def test_cli_writes_records_skips_and_errors(tmp_path, monkeypatch):
     assert rec["status"] == "skipped"
 
     def host_read(arch, shape, mesh):  # a step that reads a value
-        x = torch.zeros((), device="meta")
-        return (lambda t: t.item()), (x,), (D.Sh.P(),), None
+        x = D._block(torch.zeros((), device="meta"), D.Sh.P(), mesh)
+        return (lambda t: t.to_local().item()), (x,), None
     monkeypatch.setattr(D, "build_cell", host_read)
     assert D.main(["--arch", "yi_9b", "--shape", "decode_32k", "--mesh",
                    "multi", "--out", str(tmp_path)]) == 1

@@ -22,6 +22,7 @@ package) and the two observations must be equal:
 """
 import dataclasses
 import json
+import statistics
 import threading
 import time
 import types
@@ -444,15 +445,18 @@ def test_traced_concurrent_serving_reconciles():
 
 
 def test_trace_overhead_within_noise():
-    """Trace-ON wall vs trace-OFF wall on the depth-2 streamed path, best
-    of interleaved repeats of each, under the reference test's bound.
+    """Trace-ON wall vs trace-OFF wall on the depth-2 streamed path, under
+    the reference test's bound: the median, over 40 back-to-back pairs
+    (the pair's order alternating), of each pair's ratio.
 
     The enabled path strictly dominates the disabled path (every span
     site allocates and locks), so this ratio upper-bounds what the
     default-off instrumentation can cost; the bound exists to catch
     order-of-magnitude regressions (e.g. an eager span on the disabled
-    path). The best of several interleaved repeats keeps a loaded host's
-    stalls out of either arm."""
+    path). A pair's two runs share the host's load, and the median drops
+    the pairs a stall hit. The reference's best of each arm did not hold
+    under six test workers: a run that found the host idle set one arm
+    alone (ratios up to 1.5 with 40 repeats)."""
     pt = _clustered_pt(PORT, n=60_000, parts=8)
     q = (PartitionedQuery(pt).filter(col("units") < 90)
          .groupby(["region"], {"s": ("sum", "qty")}, num_groups_cap=8))
@@ -465,11 +469,12 @@ def test_trace_overhead_within_noise():
             q.run()
             return time.perf_counter() - t0
 
-    best = {False: float("inf"), True: float("inf")}
-    for _ in range(7):
-        for trace in (False, True):
-            best[trace] = min(best[trace], timed(trace))
-    assert best[True] / best[False] < 1.25
+    ratios = []
+    for i in range(40):
+        order = (False, True) if i % 2 == 0 else (True, False)
+        wall = {trace: timed(trace) for trace in order}
+        ratios.append(wall[True] / wall[False])
+    assert statistics.median(ratios) < 1.25
 
 
 def test_serving_stats_unchanged_when_disabled():

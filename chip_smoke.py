@@ -187,10 +187,11 @@ first error:
    production mesh (``MESH_CELLS``: qwen3-moe-235b-a22b x train_4k on the
    fake world of 256 ranks, qwen2-1.5b x decode_32k on the fake world of
    512; the rank's memory, FLOPs, bytes and collectives, traced on the
-   CPU), each record ``ok``, a MoE record with all-to-alls, and each equal
-   but for its timings and the card's memory to the record the CPU tests
-   hold for the same torch release (``MESH_CELL_RECORDS``). Five JSON
-   lines.
+   CPU), each record ``ok``, a MoE record with all-to-alls, its FLOPs and
+   peak a device beside the reference's (``MESH_CELL_REFERENCE``) and
+   within ``MESH_CELL_BOUNDS`` of them, and each equal but for its timings
+   and the card's memory to the record the CPU tests hold for the same
+   torch release (``MESH_CELL_RECORDS``). Five JSON lines.
 11. Examples phase: the five twins of ``examples/`` (``torch_quickstart``,
    ``torch_production_star``, ``torch_serving_demo``,
    ``torch_serve_batched``, ``torch_train_lm``) at their reference sizes on
@@ -328,31 +329,31 @@ MESH_CELL_RECORDS = {
             "mesh": "single",
             "n_devices": 256,
             "status": "ok",
-            "aten_ops": 1407830,
+            "aten_ops": 1522974,
             "memory": {
                 "argument_bytes": 5460099076,
                 "output_bytes": 16,
-                "temp_bytes": 22761307668,
-                "peak_estimate_bytes": 28221406744},
+                "temp_bytes": 11944473117,
+                "peak_estimate_bytes": 17404572193},
             "cost": {
-                "flops_per_device": 2586535507733563.0,
-                "bytes_accessed_per_device": 223065916194681.0},
+                "flops_per_device": 814942050079995.0,
+                "bytes_accessed_per_device": 29423304864121.0},
             "collectives": {
                 "bytes_by_type": {
-                    "all-gather": 56779965952.0,
-                    "all-reduce": 328776509420.0,
-                    "reduce-scatter": 103621853184.0,
+                    "all-gather": 44397677568.0,
+                    "all-reduce": 748906476.0,
+                    "reduce-scatter": 411345354752.0,
                     "all-to-all": 189246996480.0,
                     "collective-permute": 0.0,
                     "collective-broadcast": 0.0},
                 "count_by_type": {
-                    "all-gather": 27165,
-                    "all-reduce": 10619,
-                    "reduce-scatter": 4552,
+                    "all-gather": 17389,
+                    "all-reduce": 6875,
+                    "reduce-scatter": 9816,
                     "all-to-all": 4512,
                     "collective-permute": 0,
                     "collective-broadcast": 0},
-                "total_bytes": 678425325036.0},
+                "total_bytes": 645738935276.0},
             "model_flops_global": 1.1852782592065536e+17,
             "act_seq_axis": "model",
             "remat": "full",
@@ -363,31 +364,31 @@ MESH_CELL_RECORDS = {
             "mesh": "multi",
             "n_devices": 512,
             "status": "ok",
-            "aten_ops": 10131,
+            "aten_ops": 11894,
             "memory": {
                 "argument_bytes": 247229972,
                 "output_bytes": 1215488,
                 "temp_bytes": 58343424,
                 "peak_estimate_bytes": 305573396},
             "cost": {
-                "flops_per_device": 3833856488.0,
-                "bytes_accessed_per_device": 3496113760.0},
+                "flops_per_device": 2330666100.0,
+                "bytes_accessed_per_device": 1193004644.0},
             "collectives": {
                 "bytes_by_type": {
-                    "all-gather": 16802304.0,
-                    "all-reduce": 17502208.0,
+                    "all-gather": 4100608.0,
+                    "all-reduce": 10516992.0,
                     "reduce-scatter": 0.0,
                     "all-to-all": 0.0,
                     "collective-permute": 0.0,
                     "collective-broadcast": 0.0},
                 "count_by_type": {
-                    "all-gather": 366,
+                    "all-gather": 282,
                     "all-reduce": 337,
                     "reduce-scatter": 0,
                     "all-to-all": 0,
                     "collective-permute": 0,
                     "collective-broadcast": 0},
-                "total_bytes": 34304512.0},
+                "total_bytes": 14617600.0},
             "model_flops_global": 395190861824.0,
             "act_seq_axis": None,
             "remat": "none",
@@ -399,31 +400,31 @@ MESH_CELL_RECORDS = {
             "mesh": "single",
             "n_devices": 256,
             "status": "ok",
-            "aten_ops": 1418379,
+            "aten_ops": 1523690,
             "memory": {
                 "argument_bytes": 5460099076,
                 "output_bytes": 16,
-                "temp_bytes": 22761330708,
-                "peak_estimate_bytes": 28221429784},
+                "temp_bytes": 11944480797,
+                "peak_estimate_bytes": 17404579873},
             "cost": {
-                "flops_per_device": 2586535254313830.0,
-                "bytes_accessed_per_device": 223166046407005.0},
+                "flops_per_device": 814922503386141.0,
+                "bytes_accessed_per_device": 29428812577621.0},
             "collectives": {
                 "bytes_by_type": {
-                    "all-gather": 56746672128.0,
-                    "all-reduce": 328311177264.0,
-                    "reduce-scatter": 104293859328.0,
+                    "all-gather": 44363513856.0,
+                    "all-reduce": 283574352.0,
+                    "reduce-scatter": 412017360896.0,
                     "all-to-all": 189246996480.0,
                     "collective-permute": 0.0,
                     "collective-broadcast": 0.0},
                 "count_by_type": {
-                    "all-gather": 27162,
-                    "all-reduce": 6073,
-                    "reduce-scatter": 6051,
+                    "all-gather": 17370,
+                    "all-reduce": 2337,
+                    "reduce-scatter": 11315,
                     "all-to-all": 4512,
                     "collective-permute": 0,
                     "collective-broadcast": 0},
-                "total_bytes": 678598705200.0},
+                "total_bytes": 645911445584.0},
             "model_flops_global": 1.1852782592065536e+17,
             "act_seq_axis": "model",
             "remat": "full",
@@ -434,37 +435,47 @@ MESH_CELL_RECORDS = {
             "mesh": "multi",
             "n_devices": 512,
             "status": "ok",
-            "aten_ops": 10524,
+            "aten_ops": 12231,
             "memory": {
                 "argument_bytes": 247229972,
                 "output_bytes": 1215488,
                 "temp_bytes": 58343424,
                 "peak_estimate_bytes": 305573396},
             "cost": {
-                "flops_per_device": 3827566568.0,
-                "bytes_accessed_per_device": 3461443936.0},
+                "flops_per_device": 2324376180.0,
+                "bytes_accessed_per_device": 1158334820.0},
             "collectives": {
                 "bytes_by_type": {
-                    "all-gather": 16927744.0,
-                    "all-reduce": 8729472.0,
+                    "all-gather": 4226048.0,
+                    "all-reduce": 1744256.0,
                     "reduce-scatter": 8773632.0,
                     "all-to-all": 0.0,
                     "collective-permute": 0.0,
                     "collective-broadcast": 0.0},
                 "count_by_type": {
-                    "all-gather": 394,
+                    "all-gather": 310,
                     "all-reduce": 253,
                     "reduce-scatter": 140,
                     "all-to-all": 0,
                     "collective-permute": 0,
                     "collective-broadcast": 0},
-                "total_bytes": 34430848.0},
+                "total_bytes": 14743936.0},
             "model_flops_global": 395190861824.0,
             "act_seq_axis": None,
             "remat": "none",
             "fits_hbm": True})}
 # what a record of the same cell may change from run to run or card to card
 CELL_UNFROZEN = ("build_s", "trace_s", "parse_s", "hbm")
+# the reference's record of each of MESH_CELLS (``python -m
+# repro.launch.dryrun``, XLA's CPU compile for 256 / 512 host devices, jax
+# 0.9.0; tests/test_torch_dryrun.py holds them equal to it): FLOPs and peak
+# a device; the port's must lie within MESH_CELL_BOUNDS of them
+MESH_CELL_REFERENCE = (
+    {"flops_per_device": 828962350794622.0,
+     "peak_estimate_bytes": 17646056916},
+    {"flops_per_device": 2443322182.0, "peak_estimate_bytes": 576903956})
+MESH_CELL_BOUNDS = {"flops_per_device": (0.8, 1.25),
+                    "peak_estimate_bytes": (0.0, 2.0)}
 # (a) one MoE layer of qwen3-moe at full width (d_model 4,096, 128 experts,
 # d_ff 1,536, top 8, bf16: 4.8 GB of expert weights) through the
 # expert-parallel body on the mesh, against the local moe on the card
@@ -3476,19 +3487,35 @@ def mesh_phase(dev, seed, card):
     release = torch.__version__.split("+")[0]
     if dev.type == "cuda" and release not in MESH_CELL_RECORDS:
         raise AssertionError(f"no dry-run records for torch {release}")
-    for (arch, shape, mesh_name), want in zip(
-            MESH_CELLS, MESH_CELL_RECORDS.get(release, (None,) * 2)):
+    for (arch, shape, mesh_name), want, ref in zip(
+            MESH_CELLS, MESH_CELL_RECORDS.get(release, (None,) * 2),
+            MESH_CELL_REFERENCE):
         cell = dryrun.run_cell(arch, shape, multi_pod=mesh_name == "multi")
         name = f"dry run {arch} x {shape} x {mesh_name}"
         if cell["status"] != "ok":
             raise AssertionError(f"{name}: {cell}")
+        got = {"flops_per_device": cell["cost"]["flops_per_device"],
+               "peak_estimate_bytes":
+                   cell["memory"]["peak_estimate_bytes"]}
+        cell["reference"] = {k: {"port": got[k], "reference": ref[k],
+                                 "ratio": got[k] / ref[k],
+                                 "bound": MESH_CELL_BOUNDS[k]}
+                             for k in ref}
+        for k, r in cell["reference"].items():
+            lo, hi = r["bound"]
+            # on the CPU (a rehearsal on smoke configs) printed, not held
+            if dev.type == "cuda" and not lo <= r["ratio"] <= hi:
+                raise AssertionError(f"{name}: {k} {r['ratio']:.3f}x the "
+                                     f"reference's, outside {lo}-{hi}x")
         if configs.get_config(arch).n_experts and \
                 cell["collectives"]["count_by_type"]["all-to-all"] == 0:
             raise AssertionError(f"{name}: no all-to-all on the MoE cell")
-        cell["equal_to_record"] = cell_fields(cell) == want
+        fields = cell_fields({k: v for k, v in cell.items()
+                              if k != "reference"})
+        cell["equal_to_record"] = fields == want
         if dev.type == "cuda" and not cell["equal_to_record"]:
             raise AssertionError(f"{name} differs from torch {release}'s "
-                                 f"record: {cell_fields(cell)}")
+                                 f"record: {fields}")
         print(json.dumps({"dryrun": cell, "card": card}), flush=True)
         cells.append(cell)
     rec["dryrun_trace_s"] = [c["trace_s"] for c in cells]

@@ -22,6 +22,17 @@ rank 0 of a world of that many ranks on PyTorch's ``fake`` backend
     optimizer state for the 235B config, and the activation layout axes,
     which now constrain: the residual stream, the vocab dim, the MoE's
     expert parallelism over "model");
+  * the attention splits over "model" as the reference's does
+    (``models.layers``): in train and prefill each rank all-gathers the
+    sequence-parallel residual, attends its ``H / 16`` heads and
+    reduce-scatters its out-projection back, or, where the heads do not
+    divide the axis (qwen2, smollm, granite, llava), attends its own
+    query rows against k and v all-gathered along the sequence; in decode
+    each rank scores its stripe of the cache and all-reduces the
+    softmax's max and exp-sum, the weighted sums and the out-projection.
+    So the rank's FLOPs and score memory are 1/16 of a data rank's, as
+    the reference's are; its FSDP weight slices are all-gathered over
+    "data" inside the attention and reduce-scattered back;
   * one step (train / prefill / decode) runs on them under the mesh and
     ``hlo_cost.Trace``, which records the rank's own program: its local
     ops with local shapes and every collective it issues;

@@ -27,13 +27,15 @@ network): NCCL on the card, gloo only on the CPU.
 (a context variable). ``shard_map_compat`` runs a function on each rank's
 local block with the mesh ambient, so ``axis_group(name)`` inside it gives
 the process group of a mesh axis: torch's SPMD form of the reference's
-``shard_map`` with named axes, gradients included; ``all_gather`` and
-``all_to_all`` are the tiled ``lax`` collectives inside it, with their
-gradients. ``with_sharding_constraint`` is ``jax.lax``'s: a DTensor is
-redistributed, a plain tensor passes. The reference's jax-version shims
-(``AxisType.Auto``, ``set_mesh`` against the legacy ``with mesh:``,
-``jax.shard_map`` against ``jax.experimental``) have no torch meaning and
-are not kept; the names are.
+``shard_map`` with named axes, gradients included; ``all_gather``,
+``reduce_scatter`` and ``all_to_all`` are the tiled ``lax`` collectives
+inside it, with their gradients (an all-gather's is a reduce-scatter and
+the reverse, as in the reference). ``with_sharding_constraint`` is
+``jax.lax``'s: a DTensor is redistributed, a plain tensor passes. The
+reference's jax-version shims (``AxisType.Auto``, ``set_mesh`` against
+the legacy ``with mesh:``, ``jax.shard_map`` against
+``jax.experimental``) have no torch meaning and are not kept; the names
+are.
 """
 from __future__ import annotations
 
@@ -209,24 +211,51 @@ def placements(spec, mesh) -> Tuple[Any, ...]:
                  for a in axis_names(mesh))
 
 
+def _gather(x, dim, group):
+    """The ranks' blocks of ``x`` concatenated along ``dim`` in rank order
+    (one ``all_gather`` of the block)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def _scatter(x, dim, group):
+    """The sum over the ranks of ``x``'s block ``rank`` along ``dim`` (one
+    ``reduce_scatter_tensor`` of the whole)."""
+    n = dist.get_world_size(group)
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
 class _AllGather(torch.autograd.Function):
+    """Every rank used the whole: each keeps the sum of the gradients of
+    its own block, a reduce-scatter."""
+
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
-        x = x.contiguous()
-        parts = [torch.empty_like(x)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim)
+        return _gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        # a reduce-scatter: every rank used the whole, each keeps the sum
-        # of the gradients of its own block
-        grad = grad.contiguous()
-        dist.all_reduce(grad, group=ctx.group)
-        block = grad.chunk(dist.get_world_size(ctx.group), ctx.dim)
-        return block[dist.get_rank(ctx.group)], None, None
+        return _scatter(grad, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Each rank's block of the summed partials: the gradient of a block
+    is wanted by every rank that contributed, an all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.dim, ctx.group), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -256,6 +285,13 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     the ranks' blocks concatenated along ``dim`` in rank order. The
     gradient is reduce-scattered back."""
     return _AllGather.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``
+    over ``group``: the ranks' ``x`` summed, rank i keeping block i along
+    ``dim``. The gradient is all-gathered back."""
+    return _ReduceScatter.apply(x, dim, group)
 
 
 def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,

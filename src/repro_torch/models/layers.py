@@ -10,8 +10,23 @@ drawn as one ``[n_layers, ...]`` tensor a leaf, the reference's
 ``jax.vmap(init)`` layout.
 
 Under a mesh the reference's sharding sites act as they do there:
-  * ``causal_attention``'s ``score_shard`` constrains the scores, and
-    ``moe``'s local branch its dispatch buffer, through
+  * ``causal_attention`` and ``attention_decode`` split over the "model"
+    axis as GSPMD splits the reference's (a ``shard_map_compat`` body a
+    rank, over the ambient ``DeviceMesh`` or the DTensors' own). In train
+    and prefill a rank all-gathers its FSDP weight slices over "data" and
+    either (heads dividing the axis) all-gathers the sequence-parallel
+    residual, projects and attends its ``H / N`` heads (and the kv heads
+    they read: its own block, or the rule's head_dim slice of every kv
+    head all-gathered) and reduce-scatters its out-projection's partial
+    sum back over the sequence, or (heads that do not divide) attends its
+    own query rows against k and v all-gathered along the sequence, with
+    the weights all-gathered over "model". In decode a rank projects with
+    its blocks, all-gathers the token's q, k and v, writes the cache block
+    it owns, scores its block of the cache (a stripe of the sequence: the
+    softmax's max and exp-sum all-reduced, flash-decoding's combine; kv
+    heads; or head_dim: the scores all-reduced) and all-reduces the
+    out-projection. Every product is 1/N of the whole;
+  * ``moe``'s local branch constrains its dispatch buffer through
     ``launch.mesh.with_sharding_constraint`` (a DTensor is redistributed,
     a plain tensor passes as it is: the one-device meaning);
   * ``moe`` has the reference's three branches: no mesh (the local path,
@@ -24,6 +39,7 @@ Under a mesh the reference's sharding sites act as they do there:
     rank on local blocks, and only the aux loss's sums cross ranks;
   * the ``lax.scan`` over query chunks is a Python loop over query blocks
     (``jax.checkpoint`` of its body is a training matter: ``remat``).
+Without a mesh every path is the one-device one, op for op.
 No product here is a hand-written kernel: the reference computes this
 path in plain ``jnp``, and the port keeps ``torch.einsum`` and plain ops
 (no fused attention: ``scaled_dot_product_attention`` would change the
@@ -36,11 +52,13 @@ import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import (P, abstract_mesh_compat, activate_mesh,
                                      all_gather, all_to_all, axis_group,
-                                     from_local, shard_map_compat,
+                                     axis_sizes, from_local, reduce_scatter,
+                                     shard_map_compat,
                                      with_sharding_constraint)
 
 Params = Mapping[str, Any]
@@ -133,20 +151,6 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
     return p
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bld,dhk->blhk")``. A DTensor weight is contracted as one
-    [d, h * hd] matrix and the heads are split off after the product is
-    gathered to the batch layout: DTensor may split the folded (h, hd)
-    dim of the product where the heads do not divide the model axis, and
-    such a dim cannot be unfolded in place."""
-    from torch.distributed.tensor import DTensor
-    if not isinstance(w, DTensor):
-        return torch.einsum("bld,dhk->blhk", x, w)
-    d, h, k = w.shape
-    y = torch.einsum("bld,dn->bln", x, _folded(_whole(w, 2), 1, 2))
-    return batch_split(y).unflatten(-1, (h, k))
-
-
 def _folded(t: torch.Tensor, start: int, end: int) -> torch.Tensor:
     """``t`` with dims ``start``..``end`` folded into one, for a product.
     A DTensor's gradient comes back laid out as the folded value (a
@@ -158,40 +162,6 @@ def _folded(t: torch.Tensor, start: int, end: int) -> torch.Tensor:
     if not isinstance(t, DTensor):
         return t
     return t.redistribute(t.device_mesh, t.placements)
-
-
-def _out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bqhk,hkd->bqd")``; on DTensors one [b, q, h * hd] x
-    [h * hd, d] product of ``_folded`` operands."""
-    from torch.distributed.tensor import DTensor
-    wo = _whole(wo, 1)
-    if not isinstance(o, DTensor):
-        return torch.einsum("bqhk,hkd->bqd", o, wo)
-    return torch.einsum("bqn,nd->bqd", _folded(o, 2, 3), _folded(wo, 0, 1))
-
-
-def _project_qkv(params: Params, x: torch.Tensor):
-    x = batch_split(x)
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
-    if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    return batch_split(q), batch_split(k), batch_split(v)
-
-
-def _whole(w: torch.Tensor, dim: int) -> torch.Tensor:
-    """A DTensor weight with ``dim`` (the head dim, split where the heads
-    do not divide the model axis) gathered: the einsum folds it into the
-    heads, and a split head dim after them cannot be folded. A plain
-    tensor as it is."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not isinstance(w, DTensor) or Shard(dim) not in w.placements:
-        return w
-    return w.redistribute(w.device_mesh, tuple(
-        Replicate() if p == Shard(dim) else p for p in w.placements))
 
 
 def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -211,11 +181,11 @@ def batch_split(t: torch.Tensor) -> torch.Tensor:
     whole (partial sums reduced; a sequence-parallel residual gathered).
     A layer's einsums flatten (batch, sequence) or (batch, kv-heads) into
     one dim, which DTensor's view rules allow only when no dim after the
-    first of the group is split; each layer takes its input, and the
-    attention its q/k/v, in this layout, and gives its output through it,
-    so the gradient reaching its last einsum comes back in the layout of
-    that einsum's output, not in the residual stream's. A plain tensor as
-    it is."""
+    first of the group is split; the MLP, the SSM layers and the head take
+    their input in this layout and give their output through it, so the
+    gradient reaching a last einsum comes back in the layout of that
+    einsum's output, not in the residual stream's. A plain tensor as it
+    is."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(t, DTensor):
         return t
@@ -225,49 +195,248 @@ def batch_split(t: torch.Tensor) -> torch.Tensor:
 
 def _qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
          rope_theta: float):
-    q, k, v = _project_qkv(params, x)
+    q = torch.einsum("bld,dhk->blhk", x, params["wq"])
+    k = torch.einsum("bld,dhk->blhk", x, params["wk"])
+    v = torch.einsum("bld,dhk->blhk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
     return apply_rope(q, positions, rope_theta), \
         apply_rope(k, positions, rope_theta), v
 
 
+def _attend(qg, k, v, q_pos, k_pos, q_chunk: int, dtype):
+    """Causal grouped attention: queries ``qg`` [b, lq, kv, rep, hd] at
+    positions ``q_pos`` [lq] against ``k``/``v`` [b, lk, kv, hd] at
+    ``k_pos`` [lk]; returns [b, lq, kv, rep, hd]. ``q_chunk`` > 0 (dividing
+    lq, below it) attends one block of queries at a time."""
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+
+    def attend(qi, qpi):
+        # qi: [b, qc, kv, rep, hd]; scores [b, kv, rep, qc, lk]
+        s = torch.einsum("bqgrk,blgk->bgrql", qi, k) * scale
+        mask = qpi[:, None] >= k_pos[None, :]  # [qc, lk]
+        s = torch.where(mask, s.float(), -math.inf)
+        a = torch.softmax(s, dim=-1).to(dtype)
+        return torch.einsum("bgrql,blgk->bqgrk", a, v)
+
+    lq = qg.shape[1]
+    if q_chunk and lq > q_chunk and lq % q_chunk == 0:
+        return torch.cat([attend(qg[:, i:i + q_chunk], q_pos[i:i + q_chunk])
+                          for i in range(0, lq, q_chunk)], dim=1)
+    return attend(qg, q_pos)
+
+
 def causal_attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
                      rope_theta: float = 10000.0,
-                     q_chunk: int = 0, score_shard=None) -> torch.Tensor:
+                     q_chunk: int = 0, batch_axes=None) -> torch.Tensor:
     """Full causal self-attention (prefill). positions: [l] int32.
 
     GQA in grouped form: q as [b, l, kv, rep, hd] against kv-width k/v,
     never repeated to n_heads. ``q_chunk`` > 0 (dividing l, below it)
     attends one block of queries at a time: O(q_chunk * l) score memory.
-    ``score_shard=(batch_axes, key_axis)`` lays the [b, kv, rep, q, l]
-    scores out with their key dim over ``key_axis`` (context-parallel
-    attention, where the heads do not divide the model axis).
+
+    Under a mesh (an ambient ``DeviceMesh``, or DTensor arguments) the
+    attention splits over the "model" axis as the reference's does
+    (``_attention_body``, one rank of a ``shard_map_compat`` whose x is
+    laid out with its batch over ``batch_axes`` and its sequence over
+    "model"); the rank's scores are 1/N of the whole there.
     """
+    mesh = _device_mesh() or _tensor_mesh(x, params["wq"])
+    if mesh is not None:
+        return _attention_on_mesh(mesh, params, x, positions, rope_theta,
+                                  q_chunk, batch_axes)
     b, l, _ = x.shape
     q, k, v = _qkv(params, x, positions[None, :], rope_theta)
-    n_heads, n_kv = q.shape[2], k.shape[2]
+    n_heads, n_kv, hd = q.shape[2], k.shape[2], q.shape[-1]
+    qg = q.reshape(b, l, n_kv, n_heads // n_kv, hd)
+    o = _attend(qg, k, v, positions, positions, q_chunk, x.dtype)
+    return torch.einsum("bqhk,hkd->bqd", o.reshape(b, l, n_heads, hd),
+                        params["wo"])
+
+
+_ATTN_WEIGHTS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def _attn_specs(params: Params, mesh, keep) -> Dict[str, Any]:
+    """Each attention weight's spec by the sharding rules
+    (``distributed.sharding``: d_model over "data", the heads over
+    "model", else head_dim), with every axis that is neither "model" nor
+    in ``keep`` (the axes the batch splits over) left whole: a weight's
+    block is gathered inside the body only over an axis its output is
+    split over, so the gradient's reduce-scatter sums distinct parts."""
+    from repro_torch.distributed import sharding as Sh
+    keep = set(_axes_of(keep)) | {"model"}
+    specs = {}
+    for n in (n for n in _ATTN_WEIGHTS if n in params):
+        rule = Sh._spec_for("attn/" + n, tuple(params[n].shape), mesh)
+        specs[n] = P(*(e if set(_axes_of(e)) <= keep else None
+                       for e in rule))
+    return specs
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _fsdp_whole(t: torch.Tensor, spec) -> torch.Tensor:
+    """A weight's local block gathered over every axis of ``spec`` but
+    "model" (the FSDP slices; inner axis first)."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(_axes_of(entry)):
+            if a != "model":
+                t = all_gather(t, dim, axis_group(a))
+    return t
+
+
+def _model_dim(spec) -> Optional[int]:
+    """The dim ``spec`` splits over "model", or None."""
+    return next((d for d, e in enumerate(spec) if "model" in _axes_of(e)),
+                None)
+
+
+def _rank_block(t: torch.Tensor, spec, dim: int, lo: int, n: int, group):
+    """Rows ``lo:lo + n`` of ``dim`` of a weight, whole over "model" and
+    its other dims: the local block as it is where "model" splits ``dim``
+    (the block is the rank's), else gathered over "model" and sliced."""
+    split = _model_dim(spec)
+    if split == dim:
+        return t
+    if split is not None:
+        t = all_gather(t, split, group)
+    return t.narrow(dim, lo, n)
+
+
+def _model_whole(t: torch.Tensor, spec, group) -> torch.Tensor:
+    split = _model_dim(spec)
+    return t if split is None else all_gather(t, split, group)
+
+
+def _attention_on_mesh(mesh, params, x, positions, rope_theta, q_chunk,
+                       batch_axes):
+    """``causal_attention`` split over the "model" axis of ``mesh``: a
+    ``shard_map_compat`` of ``_attention_body`` over (x: batch over
+    ``batch_axes``, sequence over "model"; positions whole; the weights as
+    ``_attn_specs``). Raises where the sequence does not divide the
+    axis."""
+    msz = axis_sizes(mesh).get("model")
+    l = x.shape[1]
+    if msz is None or l % msz:
+        raise ValueError(f"attention on a mesh of axes {axis_sizes(mesh)}: "
+                         f"a sequence of {l} does not split over its "
+                         f"'model' axis")
+    specs = _attn_specs(params, mesh, batch_axes)
+    names = tuple(specs)
+    _, n_heads, hd = params["wq"].shape
+    body = functools.partial(_attention_body, names=names, specs=specs,
+                             n_heads=n_heads, n_kv=params["wk"].shape[1],
+                             hd=hd, rope_theta=rope_theta, q_chunk=q_chunk)
+    x_spec = P(batch_axes, "model", None)
+    sm = shard_map_compat(body, mesh,
+                          in_specs=(x_spec, P(None)) + tuple(
+                              specs[n] for n in names),
+                          out_specs=x_spec)
+    with activate_mesh(mesh):  # plain arguments are global values
+        return sm(x, positions, *(params[n] for n in names))
+
+
+def _attention_body(x, positions, *weights, names, specs, n_heads: int,
+                    n_kv: int, hd: int, rope_theta: float, q_chunk: int):
+    """One rank of the attention on a mesh. ``x`` [b_l, l / N, d] is the
+    rank's block of the sequence-parallel residual (N ranks on "model");
+    each weight arrives as its sharding rule's block and is all-gathered
+    over its FSDP axes (the ZeRO-3 flow, reduce-scattered back in the
+    backward). Every product of the layer is 1/N of the whole:
+
+      * **heads** (N divides the heads): x is all-gathered over "model"
+        along the sequence; the rank projects its ``H / N`` query heads
+        and the kv heads they read (its own block where N divides the kv
+        heads; else the rule's head_dim slice of every kv head, all-gathered
+        along head_dim, of which it keeps those heads), attends over the
+        whole sequence, out-projects with its rows of ``wo`` and
+        reduce-scatters the partial sum back to the sequence-parallel
+        layout;
+      * **query rows** (N does not divide the heads: qwen2's 12, smollm's
+        15, llava's 56 and granite's 24 on 16): the rank projects its own
+        rows of q, k and v with the weights all-gathered over "model",
+        all-gathers k and v along the sequence, and attends its rows
+        against every key; its out-projection is its own rows of the
+        residual, with no reduction. GSPMD splits the same products over
+        the keys instead (the reference's compiled program: each device's
+        rows of k and v, every query chunk all-gathered, the softmax's max
+        and sum and the weighted sums all-reduced): the same FLOPs a
+        device, more bytes between devices.
+    Where the heads divide, the split by heads is GSPMD's; the query rows
+    would give the same FLOPs and fewer collective bytes in the dry run
+    (k and v are narrower than the residual), which cards have yet to
+    time (ROADMAP A18).
+    Returns the rank's [b_l, l / N, d]."""
+    w = {n: _fsdp_whole(t, specs[n]) for n, t in zip(names, weights)}
+    group = axis_group("model")
+    msz, r = dist.get_world_size(group), dist.get_rank(group)
+    b, l_own, _ = x.shape
     n_rep = n_heads // n_kv
-    hd = q.shape[-1]
-    qg = q.reshape(b, l, n_kv, n_rep, hd)
-    scale = 1.0 / math.sqrt(hd)
 
-    def attend(qi, qpi):
-        # qi: [b, qc, kv, rep, hd]; scores [b, kv, rep, qc, l]
-        s = torch.einsum("bqgrk,blgk->bgrql", qi, k) * scale
-        if score_shard is not None:
-            s = with_sharding_constraint(
-                s, P(score_shard[0], None, None, None, score_shard[1]))
-        mask = qpi[:, None] >= positions[None, :]  # [qc, l]
-        s = torch.where(mask, s.float(), -math.inf)
-        a = torch.softmax(s, dim=-1).to(x.dtype)
-        return torch.einsum("bgrql,blgk->bqgrk", a, v)
+    def bias(name, lo, n):
+        if "b" + name[1] not in w:
+            return 0
+        return _rank_block(w["b" + name[1]], specs["b" + name[1]], 0, lo, n,
+                           group)
 
-    if q_chunk and l > q_chunk and l % q_chunk == 0:
-        o = torch.cat([attend(qg[:, i:i + q_chunk], positions[i:i + q_chunk])
-                       for i in range(0, l, q_chunk)], dim=1)
-    else:
-        o = attend(qg, positions)
-    o = batch_split(o.reshape(b, l, n_heads, hd))
-    return batch_split(_out_project(o, params["wo"]))
+    if n_heads % msz == 0:
+        h_own = n_heads // msz
+        if h_own % n_rep and n_rep % h_own:
+            raise ValueError(f"{h_own} query heads a rank do not group "
+                             f"with kv heads of {n_rep}")
+        # the kv heads the rank's query heads read
+        g_lo, g_hi = r * h_own // n_rep, ((r + 1) * h_own - 1) // n_rep + 1
+        x = all_gather(x, 1, group)
+        pos = positions[None, :]
+        q = torch.einsum("bld,dhk->blhk", x, _rank_block(
+            w["wq"], specs["wq"], 1, r * h_own, h_own, group))
+        q = q + bias("wq", r * h_own, h_own)
+
+        def kv(name):
+            if _model_dim(specs[name]) == 2:  # head_dim split: project it,
+                y = all_gather(torch.einsum("bld,dhk->blhk", x, w[name]), 3,
+                               group)[:, :, g_lo:g_hi]  # keep the heads read
+            else:
+                y = torch.einsum("bld,dhk->blhk", x, _rank_block(
+                    w[name], specs[name], 1, g_lo, g_hi - g_lo, group))
+            return y + bias(name, g_lo, g_hi - g_lo)
+
+        k, v = kv("wk"), kv("wv")
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+        qg = q.reshape(b, -1, g_hi - g_lo, h_own // (g_hi - g_lo), hd)
+        o = _attend(qg, k, v, positions, positions, q_chunk, x.dtype)
+        wo = _rank_block(w["wo"], specs["wo"], 0, r * h_own, h_own, group)
+        out = torch.einsum("bqhk,hkd->bqd", o.reshape(b, -1, h_own, hd), wo)
+        return reduce_scatter(out, 1, group)
+
+    rows = positions[r * l_own:(r + 1) * l_own]
+    pos = rows[None, :]
+
+    def proj(name):
+        y = torch.einsum("bld,dhk->blhk", x,
+                         _model_whole(w[name], specs[name], group))
+        b_name = "b" + name[1]
+        if b_name in w:
+            y = y + _model_whole(w[b_name], specs[b_name], group)
+        return y
+
+    q = apply_rope(proj("wq"), pos, rope_theta)
+    k = all_gather(apply_rope(proj("wk"), pos, rope_theta), 1, group)
+    v = all_gather(proj("wv"), 1, group)
+    qg = q.reshape(b, l_own, n_kv, n_rep, hd)
+    # a chunk of q_chunk / N rows against every key: the score block of a
+    # chunk of q_chunk queries against a rank's 1/N of the keys
+    o = _attend(qg, k, v, rows, positions, q_chunk // msz, x.dtype)
+    return torch.einsum("bqhk,hkd->bqd", o.reshape(b, l_own, n_heads, hd),
+                        _model_whole(w["wo"], specs["wo"], group))
 
 
 def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -279,18 +448,23 @@ def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     are written into the caches at ``pos`` (the reference's
     ``dynamic_update_slice`` of a donated buffer) and keys ``<= pos``
     attend. Returns (out [b, 1, d], cache_k, cache_v): the same buffers.
+
+    Under a mesh the caches are DTensors (``cache_shardings``) and the
+    step splits over "model" as the cache does (``_decode_body``).
     """
-    b = x.shape[0]
     S = cache_k.shape[1]
     if not isinstance(pos, torch.Tensor) and not 0 <= pos < S:
         raise ValueError(f"decode position {pos} outside a cache of {S}")
+    mesh = _device_mesh() or _tensor_mesh(cache_k, x, params["wq"])
+    if mesh is not None:
+        return _decode_on_mesh(mesh, params, x, cache_k, cache_v, pos,
+                               rope_theta)
+    b = x.shape[0]
     pos_t = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     positions = pos_t.reshape(1, 1).expand(b, 1)
-    q, k, v = _project_qkv(params, x)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-    _write_at(cache_k, pos_t, k)
-    _write_at(cache_v, pos_t, v)
+    q, k, v = _qkv(params, x, positions, rope_theta)
+    cache_k.index_copy_(1, pos_t.reshape(1), k.to(cache_k.dtype))
+    cache_v.index_copy_(1, pos_t.reshape(1), v.to(cache_v.dtype))
     n_heads, n_kv = q.shape[2], cache_k.shape[2]
     n_rep = n_heads // n_kv
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -301,20 +475,136 @@ def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     s = torch.where(valid, s.float(), -math.inf)
     a = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.einsum("bgrqs,bsgk->bqgrk", a, cache_v).reshape(b, 1, n_heads, -1)
-    out = torch.einsum("bqhk,hkd->bqd", o, _whole(params["wo"], 1))
-    return batch_split(out), cache_k, cache_v
+    return torch.einsum("bqhk,hkd->bqd", o, params["wo"]), cache_k, cache_v
 
 
-def _write_at(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor):
-    """``cache[:, pos] = new`` in place. A DTensor cache, laid out over any
-    of its dims, takes it as one masked select over the sequence (DTensor
-    has no rule for ``index_copy_``)."""
+def _spec_of(t: torch.Tensor, mesh):
+    """The partition spec of a DTensor's placements on ``mesh``."""
+    from torch.distributed.tensor import Shard
+    dims = [[] for _ in range(t.ndim)]
+    for name, p in zip(mesh.mesh_dim_names, t.placements):
+        if isinstance(p, Shard):
+            dims[p.dim].append(name)
+    return P(*(tuple(a) if a else None for a in dims))
+
+
+def _decode_on_mesh(mesh, params, x, cache_k, cache_v, pos, rope_theta):
+    """``attention_decode`` on DTensor caches: a ``shard_map_compat`` of
+    ``_decode_body`` over the caches' own layout (x's batch as theirs, the
+    weights as ``_attn_specs``). The step reads ``pos`` on the card only."""
     from torch.distributed.tensor import DTensor
-    if not isinstance(cache, DTensor):
-        cache.index_copy_(1, pos.reshape(1), new.to(cache.dtype))
-        return
-    at = torch.arange(cache.shape[1], device=pos.device) == pos
-    cache.copy_(torch.where(at[:, None, None], new.to(cache.dtype), cache))
+    if not (isinstance(cache_k, DTensor) and isinstance(cache_v, DTensor)):
+        raise TypeError("decode on a mesh takes DTensor caches "
+                        "(distributed.sharding.cache_shardings)")
+    c_spec = _spec_of(cache_k, mesh)
+    if _spec_of(cache_v, mesh) != c_spec or _model_dim(c_spec) in (None, 0):
+        raise ValueError(f"decode on a mesh: caches laid out {c_spec} and "
+                         f"{_spec_of(cache_v, mesh)}; the step splits "
+                         f"over a 'model' axis on S, kv heads or head_dim")
+    specs = _attn_specs(params, mesh, c_spec[0])
+    names = tuple(specs)
+    x_spec = P(c_spec[0], None, None)
+    body = functools.partial(_decode_body, names=names, specs=specs,
+                             c_split=_model_dim(c_spec),
+                             n_heads=params["wq"].shape[1],
+                             rope_theta=rope_theta)
+    sm = shard_map_compat(body, mesh, in_specs=(
+        x_spec, c_spec, c_spec, P()) + tuple(specs[n] for n in names),
+        out_specs=x_spec)
+    pos_t = torch.as_tensor(pos, dtype=torch.int64, device=cache_k.device)
+    with activate_mesh(mesh):
+        return sm(x, cache_k, cache_v, pos_t, *(params[n] for n in names)), \
+            cache_k, cache_v
+
+
+def _decode_body(x, ck, cv, pos, *weights, names, specs, c_split: int,
+                 n_heads: int, rope_theta: float):
+    """One rank of a decode step on its block of the caches, ``c_split``
+    the cache dim "model" splits (1: S, 2: kv heads, 3: head_dim). The
+    rank projects x with its block of each weight (the rule's heads or
+    head_dim) and all-gathers the one-token q, k and v over "model"; it
+    writes k and v into the one position of its block that ``pos`` falls
+    in (where ``pos`` is another rank's, it reads its own row there and
+    writes it back: no pass over the block); then:
+
+      * S: scores over its stripe of the cache; the softmax's row max and
+        exp-sum all-reduced over "model" (flash-decoding, and what XLA's
+        partitioner emits for a softmax over a split dim), the partial
+        weighted sums all-reduced;
+      * kv heads: attention of its kv heads' query groups, whole;
+      * head_dim: partial scores all-reduced, a whole softmax, the
+        rank's head_dim slice of the weighted sum;
+    the result all-gathered whole, out-projected with the rank's block of
+    ``wo`` and all-reduced. No gradient flows through the step."""
+    w = {n: _fsdp_whole(t, specs[n]) for n, t in zip(names, weights)}
+    group = axis_group("model")
+    r = dist.get_rank(group)
+    b = x.shape[0]
+
+    def proj(name):
+        y = torch.einsum("bld,dhk->blhk", x, w[name])
+        split = _model_dim(specs[name])
+        if split is not None:
+            y = all_gather(y, split + 1, group)
+        b_name = "b" + name[1]
+        if b_name in w:
+            y = y + _model_whole(w[b_name], specs[b_name], group)
+        return y
+
+    positions = pos.reshape(1, 1).expand(b, 1)
+    q = apply_rope(proj("wq"), positions, rope_theta)
+    k = apply_rope(proj("wk"), positions, rope_theta)
+    v = proj("wv")
+    n_kv, hd = k.shape[2], k.shape[3]
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, 1, n_kv, n_heads // n_kv, hd)
+    own = ck.shape[c_split]
+    lo = r * own
+    if c_split == 1:
+        at = (pos - lo).clamp(0, own - 1).reshape(1)
+        mine = (pos >= lo) & (pos < lo + own)
+        for c, new in ((ck, k), (cv, v)):
+            c.index_copy_(1, at, torch.where(mine, new.to(c.dtype),
+                                             c.index_select(1, at)))
+        s = torch.einsum("bqgrk,bsgk->bgrqs", qg, ck) * scale
+        valid = torch.arange(lo, lo + own, device=pos.device) <= pos
+        s = torch.where(valid, s.float(), -math.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=group)
+        e = torch.exp(s - m)
+        z = e.sum(dim=-1, keepdim=True)
+        dist.all_reduce(z, group=group)
+        o = torch.einsum("bgrqs,bsgk->bqgrk", (e / z).to(x.dtype), cv)
+        dist.all_reduce(o, group=group)
+    else:
+        at = pos.reshape(1)
+        mine = [slice(None)] * 4
+        mine[c_split] = slice(lo, lo + own)
+        ck.index_copy_(1, at, k[tuple(mine)].to(ck.dtype))
+        cv.index_copy_(1, at, v[tuple(mine)].to(cv.dtype))
+        if c_split == 2:
+            s = torch.einsum("bqgrk,bsgk->bgrqs", qg[:, :, lo:lo + own],
+                             ck) * scale
+        else:
+            s = torch.einsum("bqgrk,bsgk->bgrqs", qg[..., lo:lo + own], ck)
+            dist.all_reduce(s, group=group)
+            s = s * scale
+        valid = torch.arange(ck.shape[1], device=pos.device) <= pos
+        s = torch.where(valid, s.float(), -math.inf)
+        a = torch.softmax(s, dim=-1).to(x.dtype)
+        # o [b, 1, kv, rep, hd]: the rank's kv heads (dim 2) or head_dim
+        # slice (dim 4)
+        o = all_gather(torch.einsum("bgrqs,bsgk->bqgrk", a, cv),
+                       2 if c_split == 2 else 4, group)
+    o = o.reshape(b, 1, n_heads, hd)
+    split = _model_dim(specs["wo"])
+    if split is None:
+        return torch.einsum("bqhk,hkd->bqd", o, w["wo"])
+    own = w["wo"].shape[split]
+    out = torch.einsum("bqhk,hkd->bqd", o.narrow(2 + split, r * own, own),
+                       w["wo"])
+    dist.all_reduce(out, group=group)
+    return out
 
 
 # ---------------------------------------------------------------------------

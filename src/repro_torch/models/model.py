@@ -30,10 +30,12 @@ tensor they create (positions, masks, the aux sum) enters as replicated.
 The activation-sharding fields of ``ModelConfig`` constrain the layout at
 the reference's sites (``launch.mesh.with_sharding_constraint``): the
 residual stream at every block boundary (``act_batch_axes``,
-``act_seq_axis``), the attention scores (``score_seq_axis``), the MoE
-(``moe_expert_axis``, ``moe_cap_axis``: expert parallelism under an
-ambient ``DeviceMesh``), the Mamba2 heads (``ssm_head_axis``) and the
-logits (``vocab_axis``). On plain tensors each constraint is the
+``act_seq_axis``), the MoE (``moe_expert_axis``, ``moe_cap_axis``:
+expert parallelism under an ambient ``DeviceMesh``), the Mamba2 heads
+(``ssm_head_axis``) and the logits (``vocab_axis``). The attention splits
+over "model" on a mesh by itself (``layers.causal_attention``), so
+``score_seq_axis``, kept so the config holds the reference's fields, has
+no effect. On plain tensors each constraint is the
 identity, so a call with no DTensor computes what it computed before.
 """
 from __future__ import annotations
@@ -98,7 +100,7 @@ class ModelConfig:
     moe_expert_axis: Any = None
     moe_cap_axis: Any = None
     ssm_head_axis: Any = None
-    score_seq_axis: Any = None
+    score_seq_axis: Any = None  # the reference's; no effect here
     vocab_axis: Any = None
     # phantom-expert padding multiple (like vocab padding)
     expert_pad_multiple: int = 1
@@ -365,12 +367,6 @@ def _shard_act(x, cfg: ModelConfig):
     return with_sharding_constraint(x, spec)
 
 
-def _score_shard(cfg: ModelConfig):
-    if cfg.score_seq_axis is None:
-        return None
-    return (cfg.act_batch_axes, cfg.score_seq_axis)
-
-
 def _moe_axes(cfg: ModelConfig) -> Dict[str, Any]:
     return {"group_axes": cfg.act_batch_axes,
             "expert_axis": cfg.moe_expert_axis, "cap_axis": cfg.moe_cap_axis}
@@ -379,14 +375,14 @@ def _moe_axes(cfg: ModelConfig) -> Dict[str, Any]:
 def _dense_block(cfg: ModelConfig, lp, x, positions):
     h = x + L.causal_attention(lp["attn"], rmsn(lp["ln1"], x), positions,
                                cfg.rope_theta, cfg.q_chunk,
-                               score_shard=_score_shard(cfg))
+                               batch_axes=cfg.act_batch_axes)
     return h + L.mlp(lp["mlp"], rmsn(lp["ln2"], h))
 
 
 def _moe_block(cfg: ModelConfig, lp, x, positions):
     h = x + L.causal_attention(lp["attn"], rmsn(lp["ln1"], x), positions,
                                cfg.rope_theta, cfg.q_chunk,
-                               score_shard=_score_shard(cfg))
+                               batch_axes=cfg.act_batch_axes)
     y, aux = L.moe(lp["moe"], rmsn(lp["ln2"], h), cfg.top_k,
                    cfg.capacity_factor, **_moe_axes(cfg))
     return h + y, aux
@@ -463,8 +459,8 @@ def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     shape = (*shape, table.shape[1])
     return DTensor.from_local(
         out, mesh, tuple(Partial() if v else p for v, p in zip(vocab, id_pl)),
-        run_check=False, shape=shape,
-        stride=torch.empty(shape, device="meta").stride())
+        run_check=False, shape=shape, stride=tuple(
+            math.prod(shape[i + 1:]) for i in range(len(shape))))
 
 
 def _on_mesh(*tensors):
@@ -558,30 +554,51 @@ def _forward(params, cfg, batch, last_only):
     return _head(params, cfg, x, constrain=True), aux_total
 
 
+def _vocab_ids(logits: torch.Tensor) -> torch.Tensor:
+    """``arange(V)`` of the logits' last dim, laid out as that dim is (a
+    DTensor split where the logits' vocab is: the masks it meets stay a
+    rank's block of the vocab, not the whole)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    if not isinstance(logits, DTensor):
+        return ids
+    last = Shard(logits.ndim - 1)
+    pl = tuple(Shard(0) if p == last else Replicate()
+               for p in logits.placements)
+    return L.replicated(ids, logits).redistribute(logits.device_mesh, pl)
+
+
 def loss_fn(params: ParamTree, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """Causal-LM loss (next-token). Padded-vocab logits are masked.
     Differentiable: with trainable leaves, ``backward()`` fills their
     ``.grad`` (DTensor leaves: DTensor gradients on the leaf's mesh).
     On vocab-sharded DTensor logits the gold logit is a masked sum over
-    the vocab (a partial sum a rank), not a gather."""
+    the vocab (a partial sum a rank), not a gather, and the log-sum-exp
+    is taken from the vocab's max and exp-sum, each reduced over the
+    ranks."""
     from torch.distributed.tensor import DTensor
     logits, aux = forward(params, cfg, batch)
     with _on_mesh(params["embed"], *batch.values()):
         labels = batch["labels"].long()
         logits = logits.float()
-        vocab = L.replicated(torch.arange(logits.shape[-1],
-                                          device=logits.device), logits)
+        vocab = _vocab_ids(logits)
         if cfg.padded_vocab != cfg.vocab_size:
             logits = torch.where(vocab >= cfg.vocab_size, -1e9, logits)
-        logz = torch.logsumexp(logits, dim=-1)
         # ``take_along_axis`` counts a negative label from the end, as the
         # embedding's indexing does a negative id (ROADMAP.md C8)
         labels = torch.where(labels < 0, labels + logits.shape[-1], labels)
         if isinstance(logits, DTensor):
-            gold = torch.where(labels[..., None] == vocab, logits,
-                               0.0).sum(dim=-1)
+            # the vocab's max and exp-sum all-reduced over its ranks (to
+            # the batch layout: a gradient in another would gather the
+            # logits), the logits never gathered
+            top = L.batch_split(logits.detach().amax(dim=-1, keepdim=True))
+            logz = L.batch_split((logits - top).exp().sum(dim=-1)).log() \
+                + top[..., 0]
+            gold = L.batch_split(torch.where(labels[..., None] == vocab,
+                                             logits, 0.0).sum(dim=-1))
         else:
+            logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         nll = logz - gold
         if cfg.family == "vlm":  # loss only on text positions (after image)

@@ -19,15 +19,20 @@ CPU.
   eight (``tests/torch_dryrun_twins.py``), the reference compiled for
   eight forced host devices in a subprocess. A lone sharded matmul's
   FLOPs, bytes and all-reduce equal; the mini train cell's argument bytes
-  equal, collectives on both sides, dot FLOPs each held to its own
-  analytic count; the expert-parallel body's all-gathers and all-to-alls,
-  counts and bytes, equal forward and backward.
+  and dot FLOPs equal; the expert-parallel body's all-gathers,
+  all-to-alls and (in the backward) reduce-scatters, counts and bytes,
+  equal forward and backward.
+* Full-width, two-layer copies of four cells on (16, 16), both packages
+  (the reference compiled for 256 forced host devices in a subprocess):
+  each one's FLOPs a device within 0.8-1.25x of the reference's.
 * ``run_cell`` with ``status == "ok"`` on three full-size cells as rank 0
   of the (16, 16) mesh, every op of the rank on the meta device; the
   (2, 16, 16) record of qwen2-1.5b x decode_32k equal to the one
-  ``chip_smoke.py`` holds the card's run to; the CLI's records, skips and
-  errors.
+  ``chip_smoke.py`` holds the card's run to; the reference's figures
+  written into ``chip_smoke.py`` equal to its dry run of both cells; the
+  CLI's records, skips and errors.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -286,31 +291,22 @@ def test_sharded_matmul_per_device_equals_the_reference(ref, port):
     assert got["collective_bytes_by_type"]["all-reduce"] == 4 * 4 * 32
 
 
-def test_mini_train_cell_per_device_against_the_reference(ref, port):
+def test_mini_train_cell_per_device_equals_the_reference(ref, port):
     """The reference's mini dry-run cell on (2, 4): the same arguments a
-    device; collectives on both sides (GSPMD's and DTensor's own choice
-    of them); dot FLOPs each held to its own count. The reference splits
-    every product of the step over the eight devices: its count times
-    eight is the step's on one device (the port's, without a mesh). The
-    port splits every product over the eight ranks but two, which each
-    model rank computes whole for its batch rows: the attention's scores
-    and its weighted sum (``batch_split`` keeps a layer's attention whole
-    but for its batch), and the output projection's weight gradient (its
-    operand, the attention output, is whole over the model axis)."""
+    device; collectives on both sides (GSPMD's and the port's own choice
+    of them); the same dot FLOPs a device. The reference splits every
+    product of the step over the eight devices: its count times eight is
+    the step's on one device (the port's, without a mesh). So does the
+    port: its attention splits over the model axis by heads (4 heads on
+    4 ranks; the 2 kv heads by head_dim), its output projection and that
+    weight's gradient with it."""
     got, want = port["train"], ref["train"]
     assert got["argument_bytes"] == want["argument_bytes"] > 0
     assert got["collective_bytes_by_type"]["all-gather"] > 0
     assert want["collective_bytes_by_type"]["all-gather"] > 0
     one = got["one_device_dot_flops"]
     assert want["dot_flops"] * 8 == one
-    cfg, _, batch = Twins.mini_train_cell()
-    b, l = batch["tokens"].shape
-    hh = cfg.n_heads * cfg.hd
-    # fwd, remat's recompute and two products of the backward each
-    attention = cfg.n_layers * 4 * 2 * (2 * b * l * l * hh)
-    wo_grad = cfg.n_layers * 2 * hh * b * l * cfg.d_model
-    whole = attention + wo_grad
-    assert got["dot_flops"] == (one - whole) / 8 + whole / 2
+    assert got["dot_flops"] == want["dot_flops"]
 
 
 @pytest.mark.parametrize("case", ["ep_fwd", "ep_fwd_bwd"])
@@ -320,16 +316,67 @@ def test_expert_parallel_body_collectives_equal_the_reference(ref, port,
     (two more for the gradient), counts and operand bytes a device. The
     reference's count is of its ``shard_map`` body: GSPMD gathers the
     routing around it, which the port runs inside the body. A gathered
-    weight's gradient is a reduce-scatter in the reference; the port
-    all-reduces it and keeps its block (``launch.mesh._AllGather``, which
-    the gloo world runs too)."""
+    weight's gradient is a reduce-scatter on both sides
+    (``launch.mesh._AllGather``'s backward, which the gloo world runs
+    too): the same count and operand bytes; DTensor's own reduce-scatters
+    around the body are not counted."""
     types = ("all-gather", "all-to-all")
     assert _colls(port[case], *types) == _colls(ref[case], *types)
     n = 2 * (1 + (case == "ep_fwd_bwd"))
     assert port[case]["collective_count_by_type"]["all-to-all"] == n
     assert port[case]["collective_count_by_type"]["all-gather"] == 3
-    assert ref[case]["collective_count_by_type"]["reduce-scatter"] == (
-        3 if case == "ep_fwd_bwd" else 0)
+    want = {"count": ref[case]["collective_count_by_type"]["reduce-scatter"],
+            "bytes": ref[case]["collective_bytes_by_type"]["reduce-scatter"]}
+    assert port[case]["mesh_reduce_scatter"] == want
+    assert want["count"] == (3 if case == "ep_fwd_bwd" else 0)
+
+
+# (arch, shape) of the two-layer twins: attention split by heads (yi's 32
+# heads, its 4 kv heads by head_dim), by query rows (smollm's 15 heads and
+# qwen2's 12 on 16 ranks), and decode on a cache split over its sequence
+TWO_LAYER_CELLS = (("yi_9b", "train_4k"), ("smollm_360m", "train_4k"),
+                   ("qwen2_1p5b", "prefill_32k"), ("qwen2_1p5b", "decode_32k"))
+
+_REF_CELLS = r"""
+import dataclasses, json, sys
+import jax
+assert len(jax.devices()) == 256
+from repro import configs
+from repro.launch import dryrun as D
+get = configs.get_config
+configs.get_config = lambda a: dataclasses.replace(get(a), n_layers=2)
+print(json.dumps({f"{a}/{s}": D.run_cell(a, s, multi_pod=False)["cost"][
+    "flops_per_device"] for a, s in json.loads(sys.argv[1])}))
+"""
+
+
+def test_two_layer_cells_flops_a_device_near_the_reference(monkeypatch):
+    """The four ``TWO_LAYER_CELLS`` at full width and two layers, as rank 0
+    of the (16, 16) world, against the reference's record of the same
+    copies: FLOPs a device within 0.8-1.25x (the split of every product,
+    the attention's included, over the 256 devices). The reference
+    compiles in a subprocess while the port traces."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=256",
+               PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))), "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _REF_CELLS, json.dumps(TWO_LAYER_CELLS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        get = TC.get_config
+        monkeypatch.setattr(TC, "get_config", lambda a: dataclasses.replace(
+            get(a), n_layers=2))
+        got = {f"{a}/{s}": D.run_cell(a, s, multi_pod=False)["cost"][
+            "flops_per_device"] for a, s in TWO_LAYER_CELLS}
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    want = json.loads(out.strip().splitlines()[-1])
+    assert set(got) == set(want)
+    for cell, flops in want.items():
+        assert 0.8 <= got[cell] / flops <= 1.25, (cell, got[cell], flops)
 
 
 class _MetaTrace(TH.Trace):
@@ -377,7 +424,9 @@ def test_multi_pod_record_equals_the_card_record():
     record ``chip_smoke.py`` requires of the card's run under this torch
     release, but for the timings and the memory the card reports. The
     releases' records share every field the sharding rules fix and the
-    EP body's own exchanges; DTensor's redistributions are their own."""
+    EP body's own exchanges; DTensor's redistributions are their own.
+    Each record's FLOPs and peak a device lie within the bounds the card
+    run holds them to of the reference's."""
     import chip_smoke
     arch, shape, mesh = chip_smoke.MESH_CELLS[1]
     rec = D.run_cell(arch, shape, multi_pod=mesh == "multi")
@@ -395,6 +444,42 @@ def test_multi_pod_record_equals_the_card_record():
         for key in ("count_by_type", "bytes_by_type"):
             assert len({c["collectives"][key]["all-to-all"]
                         for c in cells}) == 1, key
+    # every release's record within the card run's bounds of the
+    # reference's FLOPs and peak a device
+    for cells in records.values():
+        for cell, want in zip(cells, chip_smoke.MESH_CELL_REFERENCE):
+            got = {**cell["cost"], **cell["memory"]}
+            for key, (lo, hi) in chip_smoke.MESH_CELL_BOUNDS.items():
+                assert lo <= got[key] / want[key] <= hi, (cell["arch"], key)
+
+
+_REF_CELL = r"""
+import json, sys
+from repro.launch import dryrun as D
+rec = D.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "multi")
+print(json.dumps({"flops_per_device": rec["cost"]["flops_per_device"],
+                  "peak_estimate_bytes": rec["memory"]["peak_estimate_bytes"]}))
+"""
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_mesh_cell_reference_equals_the_reference_dry_run(i):
+    """``chip_smoke.MESH_CELL_REFERENCE``, the reference's FLOPs and peak a
+    device that the card run bounds the port's by, equal to the
+    reference's own dry run of the cell (compiled for 256 / 512 forced
+    host devices in a subprocess)."""
+    import chip_smoke
+    arch, shape, mesh = chip_smoke.MESH_CELLS[i]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count="
+               f"{512 if mesh == 'multi' else 256}",
+               PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))), "src"))
+    out = subprocess.run([sys.executable, "-c", _REF_CELL, arch, shape, mesh],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == \
+        chip_smoke.MESH_CELL_REFERENCE[i]
 
 
 def test_cli_writes_records_skips_and_errors(tmp_path, monkeypatch):

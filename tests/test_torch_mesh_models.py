@@ -19,9 +19,18 @@ below 1e-5; slots equal exactly.
     ::test_mini_dryrun_cell_8dev``, in float32) on DTensor params and
     batch: the loss and every gradient leaf against the reference's
     ``jit`` on its mesh and against the port on one device.
+  * (vi) ``causal_attention``'s mesh branch (split by heads, with the kv
+    heads or their head_dim split, and by query rows; biases on two):
+    y and the gradient of every leaf and of x against ``jax.grad`` of the
+    reference on its mesh and against one device; each rank's score
+    blocks hold half the heads (or, split by rows, half the rows).
+  * (vii) ``attention_decode`` on caches split over the sequence, the kv
+    heads and head_dim, two steps in two ranks' stripes: y and both
+    caches against one device.
   * (v) granite-moe (``moe_expert_axis``), zamba2 (``ssm_head_axis``) and
-    smollm (``act_seq_axis``, ``vocab_axis``, ``score_seq_axis``; 3 heads
-    on a model axis of 2) smoke forwards on DTensors against one device at capacity factor 100
+    smollm (``act_seq_axis``, ``vocab_axis``; 3 heads on a model axis of
+    2, the attention split by query rows) smoke forwards on DTensors
+    against one device at capacity factor 100
     (without drops the expert-parallel ranking in sub-groups keeps every
     entry, as one device does); granite at 1.25 against the reference's
     forward on its mesh; two granite ``decode_step`` calls on a DTensor
@@ -44,7 +53,7 @@ _REF = """
 import dataclasses, sys
 import numpy as np, jax, jax.numpy as jnp
 from jax import lax
-from jax.sharding import NamedSharding
+from jax.sharding import NamedSharding, PartitionSpec as P
 from repro import configs
 from repro.distributed import sharding as Sh
 from repro.launch.mesh import activate_mesh, make_mesh_compat
@@ -119,6 +128,25 @@ with activate_mesh(mesh):
 res["iv/loss"] = np.asarray(loss)
 flat("iv/g", g)
 
+pos = jnp.arange(W.ATTN_L, dtype=jnp.int32)
+for name, (*_, q_chunk) in W.ATTN.items():
+    p = tree(f"attn/{name}/p")
+    x, cot = (jnp.asarray(inp[f"attn/{name}/{k}"]) for k in ("x", "cot"))
+
+    def val(p_, x_):
+        y = L.causal_attention(p_, x_, pos, 10000.0, q_chunk)
+        return jnp.sum(y * cot), y
+
+    sh = jax.tree.map(lambda s: NamedSharding(mesh, s),
+                      Sh.param_shardings({"attn": p}, mesh))["attn"]
+    with activate_mesh(mesh):
+        (_, y), (gp, gx) = jax.jit(
+            jax.value_and_grad(val, argnums=(0, 1), has_aux=True),
+            in_shardings=(sh, NamedSharding(mesh, P("data", "model", None)))
+        )(p, x)
+    res[f"vi/{name}/y"], res[f"vi/{name}/gx"] = np.asarray(y), np.asarray(gx)
+    flat(f"vi/{name}/g", gp)
+
 arch = "granite_moe_3b_a800m"
 cfg = W.smoke_config(dataclasses.replace(configs.get_smoke_config(arch),
                                          dtype=jnp.float32), arch, 1.25)
@@ -158,6 +186,21 @@ def _inputs(path):
     _flat("moe", {k: v.numpy() for k, v in TL.init_moe(
         gen, 16, 32, 6, torch.float32, torch.device("cpu"),
         n_padded=8).items()}, inp)
+    for name, (d, h, kv, hd, bias, _) in W.ATTN.items():
+        p = TL.init_attention(gen, d, h, kv, hd, bias, torch.float32,
+                              torch.device("cpu"))
+        _flat(f"attn/{name}/p", {k: rng.standard_normal(v.shape).astype(f32)
+                                 * (0.1 if k[0] == "b" else 1.0)
+                                 if k[0] == "b" else v.numpy()
+                                 for k, v in p.items()}, inp)
+        for k in ("x", "cot"):
+            inp[f"attn/{name}/{k}"] = rng.standard_normal(
+                (W.ATTN_B, W.ATTN_L, d)).astype(f32)
+        for k in "kv":
+            inp[f"dec/{name}/{k}"] = rng.standard_normal(
+                (W.ATTN_B, W.DECODE_S, kv, hd)).astype(f32)
+        inp[f"dec/{name}/x"] = rng.standard_normal(
+            (len(W.DECODE_POS), W.ATTN_B, 1, d)).astype(f32)
     models = [("mini", W.mini_config(TC.get_smoke_config("qwen2_1p5b")),
                (8, 64))]
     models += [(arch, TC.get_smoke_config(arch), (4, 16))
@@ -269,3 +312,49 @@ def test_granite_decode_on_a_dtensor_cache_equals_one_device(runs):
     port, _ = runs
     arch = "granite_moe_3b_a800m"
     _close(port[f"v/{arch}/decode"], port[f"v/{arch}/decode/one"])
+
+
+@pytest.mark.parametrize("name", list(W.ATTN))
+def test_attention_on_the_mesh_equals_the_reference(runs, name):
+    """y, and the gradient of x and of every weight, against the
+    reference's ``jit`` on its (2, 2) mesh and against one device."""
+    port, ref = runs
+    leaves = sorted(k[len(f"vi/{name}/g/"):] for k in ref
+                    if k.startswith(f"vi/{name}/g/"))
+    assert leaves == sorted(k[len(f"vi/{name}/g/"):] for k in port
+                            if k.startswith(f"vi/{name}/g/"))
+    for key in ["y", "gx"] + [f"g/{k}" for k in leaves]:
+        got = port[f"vi/{name}/{key}"]
+        _close(got, ref[f"vi/{name}/{key}"])
+        one = key.replace("/", "1/") if "/" in key else key + "1"
+        _close(got, port[f"vi/{name}/{one}"])
+
+
+@pytest.mark.parametrize("name", list(W.ATTN))
+def test_each_rank_scores_half_the_attention(runs, name):
+    """A rank's score blocks [b, kv, rep, q, l]: its batch rows, every
+    key, and n_heads / 2 heads (split by heads) or, split by rows, every
+    head and half the query rows."""
+    port, _ = runs
+    _, n_heads, *_ = W.ATTN[name]
+    blocks, one = port[f"vi/{name}/scores"], port[f"vi/{name}/scores1"]
+    assert len(blocks) and (blocks[:, 0] == W.ATTN_B // 2).all()
+    assert (blocks[:, 4] == W.ATTN_L).all()
+    heads = blocks[:, 1] * blocks[:, 2]
+    if n_heads % 2 == 0:
+        assert (heads == n_heads // 2).all()
+        assert blocks[:, 3].sum() == W.ATTN_L
+    else:
+        assert (heads == n_heads).all()
+        assert blocks[:, 3].sum() == W.ATTN_L // 2
+    assert (one[:, 1] * one[:, 2] == n_heads).all()
+    assert one[:, 3].sum() == W.ATTN_L
+
+
+@pytest.mark.parametrize("name,layout", W.DECODE)
+def test_decode_on_a_split_cache_equals_one_device(runs, name, layout):
+    port, _ = runs
+    for i in range(len(W.DECODE_POS)):
+        key = f"vii/{name}/{layout}/{i}"
+        for part in ("y", "k", "v"):
+            _close(port[f"{key}/{part}"], port[f"{key}/{part}/one"])

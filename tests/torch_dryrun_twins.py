@@ -21,6 +21,10 @@ shape, its arguments DTensors built from rank 0's meta blocks
     inputs laid out as its body takes them; forward, then forward and the
     gradients of ``sum(y) + aux``.
 
+Each scenario also counts the reduce-scatters of ``launch.mesh``'s own
+collectives (``mesh_reduce_scatter``), which the reference's body issues
+as its all-gathers' transposes.
+
 This module imports no JAX; run as a script it prints every scenario's
 numbers as one JSON line, for a check on another machine's torch.
 """
@@ -58,6 +62,13 @@ def _costs(trace, args=()):
         [op for op in trace.ops if op.kind == "dot"])["flops"]
     got["argument_bytes"] = D._storage_bytes(
         [t for a in args for t in D._locals(a)])
+    # the reduce-scatters ``launch.mesh`` issues (a gathered block's
+    # gradient), apart from DTensor's own (``reduce_scatter_tensor``)
+    mine = [op for op in trace.ops if op.name == "_reduce_scatter_base_"]
+    got["mesh_reduce_scatter"] = {
+        "count": len(mine),
+        "bytes": TH.analyze(mine)["collective_bytes_by_type"][
+            "reduce-scatter"]}
     return got
 
 

@@ -24,6 +24,15 @@ Scenarios (the names of the saved arrays start with them):
     model axis) smoke forwards on DTensors; granite also at capacity factor 1.25
     and two teacher-forced ``decode_step`` calls on a DTensor cache
     (``cache_shardings``).
+  * ``vi``: ``causal_attention``'s mesh branch on plain tensors under the
+    ambient mesh (``ATTN``: split by heads with the kv heads split, by
+    heads with the kv heads' head_dim split, and by query rows), y and
+    the gradients of ``sum(y * cot)``, beside one device; the shape of
+    every score block the rank's softmax took (``hlo_cost.Trace``).
+  * ``vii``: ``attention_decode`` on DTensor caches split over the
+    sequence, the kv heads or head_dim (``DECODE``), two steps whose
+    positions fall in different ranks' stripes: y and both caches, beside
+    one device.
 """
 import dataclasses
 import sys
@@ -35,6 +44,7 @@ import torch.distributed as dist
 
 from repro_torch import configs as TC
 from repro_torch.distributed import sharding as Sh
+from repro_torch.launch import hlo_cost as TH
 from repro_torch.launch import mesh as TMesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as TM
@@ -51,9 +61,24 @@ NO_DROP = 100.0
 SMOKE_AXES = {"granite_moe_3b_a800m": {"moe_expert_axis": "model"},
               "zamba2_1p2b": {"ssm_head_axis": "model"},
               # 3 heads on a model axis of 2: the head-dim fallback, and
-              # the scores' key dim over the model axis instead
-              "smollm_360m": {"act_seq_axis": "model", "vocab_axis": "model",
-                              "score_seq_axis": "model"}}
+              # the attention split by query rows
+              "smollm_360m": {"act_seq_axis": "model",
+                              "vocab_axis": "model"}}
+
+# attention shapes of ``vi`` / ``vii``: (d, heads, kv heads, head_dim,
+# qkv bias, q_chunk), on a batch of ATTN_B x ATTN_L
+ATTN = {"heads": (64, 4, 2, 16, False, 16),
+        "heads_hd": (64, 4, 1, 16, True, 0),
+        "rows": (60, 3, 1, 20, True, 8)}
+ATTN_B, ATTN_L = 4, 32
+# decode: (attention shape, the cache dim split over "model"), a cache of
+# DECODE_S positions, steps at DECODE_POS
+DECODE = (("heads", "seq"), ("heads", "kv"), ("heads_hd", "hd"),
+          ("rows", "seq"))
+DECODE_S, DECODE_POS = 8, (3, 5)
+CACHE_SPECS = {"seq": ("data", "model", None, None),
+               "kv": ("data", None, "model", None),
+               "hd": ("data", None, None, "model")}
 
 
 def mini_config(cfg):
@@ -194,6 +219,51 @@ def _smoke_scenarios(mesh, inp, out):
         out[f"v/{arch}/decode/one"] = np.stack(steps1)
 
 
+def _attention_scenarios(mesh, inp, out):
+    from torch.distributed.tensor import distribute_tensor
+    pos = torch.arange(ATTN_L, dtype=torch.int32)
+    for name, (*_, q_chunk) in ATTN.items():
+        p = {k: torch.from_numpy(v) for k, v in
+             nest(inp, f"attn/{name}/p").items()}
+        x, cot = (torch.from_numpy(inp[f"attn/{name}/{k}"])
+                  for k in ("x", "cot"))
+        for tag, on_mesh in (("", True), ("1", False)):
+            leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+            xg = x.clone().requires_grad_()
+            with TMesh.activate_mesh(mesh if on_mesh else None), \
+                    TH.Trace() as trace:
+                y = L.causal_attention(leaves, xg, pos, 10000.0, q_chunk,
+                                       batch_axes=("data",))
+            (y * cot).sum().backward()
+            out[f"vi/{name}/y{tag}"] = _host(y)
+            out[f"vi/{name}/gx{tag}"] = _host(xg.grad)
+            out.update({f"vi/{name}/g{tag}/{k}": _host(v.grad)
+                        for k, v in leaves.items()})
+            out[f"vi/{name}/scores{tag}"] = np.array(
+                [op.ins[0][0] for op in trace.ops if op.kind == "softmax"])
+    for name, layout in DECODE:
+        p = {k: torch.from_numpy(v) for k, v in
+             nest(inp, f"attn/{name}/p").items()}
+        spec = TMesh.P(*CACHE_SPECS[layout])
+        caches = [torch.from_numpy(inp[f"dec/{name}/{k}"]) for k in "kv"]
+        one = [c.clone() for c in caches]
+        laid = [distribute_tensor(c.clone(), mesh,
+                                  TMesh.placements(spec, mesh))
+                for c in caches]
+        for i, at in enumerate(DECODE_POS):
+            x = torch.from_numpy(inp[f"dec/{name}/x"][i])
+            with torch.no_grad():
+                y1, _, _ = L.attention_decode(p, x, *one, at)
+                with TMesh.activate_mesh(mesh):
+                    y, _, _ = L.attention_decode(p, x, *laid,
+                                                 torch.tensor(at))
+            key = f"vii/{name}/{layout}/{i}"
+            out[key + "/y"], out[key + "/y/one"] = _host(y), _host(y1)
+            for k, c, c1 in zip("kv", laid, one):  # copies: c1 moves on
+                out[f"{key}/{k}"] = _host(c).copy()
+                out[f"{key}/{k}/one"] = _host(c1).copy()
+
+
 def main(argv):
     rank, store, inp_path, out_path = argv
     rank = int(rank)
@@ -204,7 +274,8 @@ def main(argv):
         inp = dict(np.load(inp_path))
         out = {}
         for name, run in (("moe", _moe_scenarios), ("mini", _mini_scenario),
-                          ("smoke", _smoke_scenarios)):
+                          ("smoke", _smoke_scenarios),
+                          ("attention", _attention_scenarios)):
             t0 = time.perf_counter()
             run(mesh, inp, out)
             out[f"wall/{name}"] = np.array(time.perf_counter() - t0)

@@ -226,10 +226,14 @@ below are copies of ``benchmarks/bench_tpch.py``'s.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -314,9 +318,12 @@ MESH_TOPK_FRAC = 0.01
 MESH_F32_LEAF = (1536, 8960)
 MESH_BF16_LEAF = (128, 128)
 # (c) the dry run (``launch/dryrun.py``) as rank 0 of a fake world of the
-# production mesh's size: (arch, shape, mesh)
+# production mesh's size, each cell traced by a child process on the CPU
+# beside the phases that use the card: (arch, shape, mesh)
 MESH_CELLS = (("qwen3_moe_235b_a22b", "train_4k", "single"),
-              ("qwen2_1p5b", "decode_32k", "multi"))
+              ("qwen2_1p5b", "decode_32k", "multi"),
+              ("xlstm_350m", "train_4k", "single"),
+              ("zamba2_1p2b", "train_4k", "single"))
 # the records of MESH_CELLS without CELL_UNFROZEN, by the torch release
 # that traced them (on the CPU; DTensor's redistributions differ between
 # releases: 2.11 all-reduces a partial sum where 2.13 reduce-scatters it,
@@ -329,15 +336,15 @@ MESH_CELL_RECORDS = {
             "mesh": "single",
             "n_devices": 256,
             "status": "ok",
-            "aten_ops": 1522974,
+            "aten_ops": 1522990,
             "memory": {
                 "argument_bytes": 5460099076,
                 "output_bytes": 16,
                 "temp_bytes": 11944473117,
                 "peak_estimate_bytes": 17404572193},
             "cost": {
-                "flops_per_device": 814942050079995.0,
-                "bytes_accessed_per_device": 29423304864121.0},
+                "flops_per_device": 814933337462011.0,
+                "bytes_accessed_per_device": 29340534993273.0},
             "collectives": {
                 "bytes_by_type": {
                     "all-gather": 44397677568.0,
@@ -392,6 +399,76 @@ MESH_CELL_RECORDS = {
             "model_flops_global": 395190861824.0,
             "act_seq_axis": None,
             "remat": "none",
+            "fits_hbm": True},
+        {
+            "arch": "xlstm_350m",
+            "shape": "train_4k",
+            "mesh": "single",
+            "n_devices": 256,
+            "status": "ok",
+            "aten_ops": 30310,
+            "memory": {
+                "argument_bytes": 50140804,
+                "output_bytes": 16,
+                "temp_bytes": 7690534972,
+                "peak_estimate_bytes": 7740675776},
+            "cost": {
+                "flops_per_device": 20182656105946.0,
+                "bytes_accessed_per_device": 964547119563.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 1530020416.0,
+                    "all-reduce": 34241884.0,
+                    "reduce-scatter": 12395929600.0,
+                    "all-to-all": 301989888.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 98838,
+                    "all-reduce": 184,
+                    "reduce-scatter": 49409,
+                    "all-to-all": 36,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 14262181788.0},
+            "model_flops_global": 3024969692872704.0,
+            "act_seq_axis": "model",
+            "remat": "full",
+            "fits_hbm": True},
+        {
+            "arch": "zamba2_1p2b",
+            "shape": "train_4k",
+            "mesh": "single",
+            "n_devices": 256,
+            "status": "ok",
+            "aten_ops": 161136,
+            "memory": {
+                "argument_bytes": 49190244,
+                "output_bytes": 16,
+                "temp_bytes": 9102326184,
+                "peak_estimate_bytes": 9151516428},
+            "cost": {
+                "flops_per_device": 49902937152050.0,
+                "bytes_accessed_per_device": 2679360556220.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 2431501120.0,
+                    "all-reduce": 1672239152.0,
+                    "reduce-scatter": 21601451008.0,
+                    "all-to-all": 0.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 1610,
+                    "all-reduce": 834,
+                    "reduce-scatter": 786,
+                    "all-to-all": 0,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 25705191280.0},
+            "model_flops_global": 7363984764174336.0,
+            "act_seq_axis": "model",
+            "remat": "full",
             "fits_hbm": True}),
     "2.13.0": (
         {
@@ -463,6 +540,76 @@ MESH_CELL_RECORDS = {
             "model_flops_global": 395190861824.0,
             "act_seq_axis": None,
             "remat": "none",
+            "fits_hbm": True},
+        {
+            "arch": "xlstm_350m",
+            "shape": "train_4k",
+            "mesh": "single",
+            "n_devices": 256,
+            "status": "ok",
+            "aten_ops": 30514,
+            "memory": {
+                "argument_bytes": 50140804,
+                "output_bytes": 16,
+                "temp_bytes": 5007753272,
+                "peak_estimate_bytes": 5057894076},
+            "cost": {
+                "flops_per_device": 20179147504109.0,
+                "bytes_accessed_per_device": 960611156451.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 1529995264.0,
+                    "all-reduce": 21671196.0,
+                    "reduce-scatter": 12408807424.0,
+                    "all-to-all": 301989888.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 98837,
+                    "all-reduce": 179,
+                    "reduce-scatter": 49410,
+                    "all-to-all": 36,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 14262463772.0},
+            "model_flops_global": 3024969692872704.0,
+            "act_seq_axis": "model",
+            "remat": "full",
+            "fits_hbm": True},
+        {
+            "arch": "zamba2_1p2b",
+            "shape": "train_4k",
+            "mesh": "single",
+            "n_devices": 256,
+            "status": "ok",
+            "aten_ops": 162123,
+            "memory": {
+                "argument_bytes": 49190244,
+                "output_bytes": 16,
+                "temp_bytes": 9102326184,
+                "peak_estimate_bytes": 9151516428},
+            "cost": {
+                "flops_per_device": 49900702513746.0,
+                "bytes_accessed_per_device": 2677007576352.0},
+            "collectives": {
+                "bytes_by_type": {
+                    "all-gather": 2431469120.0,
+                    "all-reduce": 1645623264.0,
+                    "reduce-scatter": 21688351744.0,
+                    "all-to-all": 0.0,
+                    "collective-permute": 0.0,
+                    "collective-broadcast": 0.0},
+                "count_by_type": {
+                    "all-gather": 1608,
+                    "all-reduce": 850,
+                    "reduce-scatter": 798,
+                    "all-to-all": 0,
+                    "collective-permute": 0,
+                    "collective-broadcast": 0},
+                "total_bytes": 25765444128.0},
+            "model_flops_global": 7363984764174336.0,
+            "act_seq_axis": "model",
+            "remat": "full",
             "fits_hbm": True})}
 # what a record of the same cell may change from run to run or card to card
 CELL_UNFROZEN = ("build_s", "trace_s", "parse_s", "hbm")
@@ -473,7 +620,11 @@ CELL_UNFROZEN = ("build_s", "trace_s", "parse_s", "hbm")
 MESH_CELL_REFERENCE = (
     {"flops_per_device": 828962350794622.0,
      "peak_estimate_bytes": 17646056916},
-    {"flops_per_device": 2443322182.0, "peak_estimate_bytes": 576903956})
+    {"flops_per_device": 2443322182.0, "peak_estimate_bytes": 576903956},
+    {"flops_per_device": 20222584719340.0,
+     "peak_estimate_bytes": 4951237660},
+    {"flops_per_device": 50671239955994.0,
+     "peak_estimate_bytes": 8296205892})
 MESH_CELL_BOUNDS = {"flops_per_device": (0.8, 1.25),
                     "peak_estimate_bytes": (0.0, 2.0)}
 # (a) one MoE layer of qwen3-moe at full width (d_model 4,096, 128 experts,
@@ -486,13 +637,24 @@ MESH_EP_BATCH, MESH_EP_SEQ = 4, 256
 # may take another kernel: bf16 outputs may differ by a rounding of the
 # expert products (one bfloat16 ulp, 2^-7 relative, of the largest)
 MESH_EP_BOUND = 2.0 ** -7
-# (b) granite-moe's full-width forward and a greedy decode on DTensor params
-# and a DTensor batch, against the plain ones on the card
-MESH_DT_ARCH = "granite_moe_3b_a800m"
-MESH_DT_AXES = {"act_batch_axes": ("data",), "moe_expert_axis": "model",
-                "vocab_axis": "model"}
-MESH_DT_PROMPT, MESH_DT_GEN = 8, 4
-MESH_DT_BOUND = 1e-2  # logits' rel err, DTensor against plain (bf16)
+# (b) full-width forwards and greedy decodes on DTensor params and a
+# DTensor batch, against the plain ones on the card: arch -> (its mesh
+# axes, the forward's tokens a sequence, a leaf whose placements are
+# printed). zamba2's forward splits each Mamba2 layer's rows in SSD chunks
+# of 64 over "model", so its sequence is a multiple of 64
+MESH_DT = {
+    "granite_moe_3b_a800m": ({"act_batch_axes": ("data",),
+                              "moe_expert_axis": "model",
+                              "vocab_axis": "model"}, 8,
+                             ("layers", "moe", "w_gate")),
+    "zamba2_1p2b": ({"act_batch_axes": ("data",), "act_seq_axis": "model",
+                     "vocab_axis": "model"}, 64,
+                    ("mamba_main", "mamba", "in_proj")),
+    "xlstm_350m": ({"act_batch_axes": ("data",), "act_seq_axis": "model",
+                    "vocab_axis": "model"}, 8, ("pairs", "slstm", "w_h")),
+}
+MESH_DT_PROMPT, MESH_DT_GEN = 8, 4  # the greedy decode's
+MESH_DT_BOUND = 1e-3  # logits' rel err, DTensor against plain (bf16)
 # the examples phase: the five twins of examples/ at their reference sizes,
 # each ending in its line of OK; the kernels their runs must launch
 EXAMPLES = {"torch_quickstart": "quickstart OK",
@@ -3187,6 +3349,72 @@ def distinct_leaf(shape, dtype, dev, seed):
     return (mag * sign).reshape(shape).to(dev)
 
 
+_DRYRUN = []  # (cell, child process, its record's path, its log's path)
+# how long the mesh phase waits for the dry-run children, all told
+DRYRUN_WAIT_S = 600
+
+
+def start_dryrun_cells():
+    """Start one child process a cell of ``MESH_CELLS``, ``python -m
+    repro_torch.launch.dryrun --arch A --shape S --mesh M --out DIR``, on
+    the CPU (no card visible, one thread each): the traces are host work
+    that waits on nothing else, so they run beside the phases that use
+    the card. Once a run; stopped at exit if still running."""
+    import repro_torch
+    if _DRYRUN:
+        return
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    path = [str(Path(repro_torch.__file__).resolve().parent.parent)]
+    if os.environ.get("PYTHONPATH"):
+        path.append(os.environ["PYTHONPATH"])
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(path))
+    for arch, shape, mesh_name in MESH_CELLS:
+        log = out / f"{arch}_{shape}_{mesh_name}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh_name, "--out",
+                 str(out)], env=env, stdout=f, stderr=subprocess.STDOUT)
+        _DRYRUN.append(((arch, shape, mesh_name), proc,
+                        out / f"{arch}_{shape}_{mesh_name}.json", log))
+    atexit.register(stop_dryrun_cells)
+
+
+def stop_dryrun_cells():
+    """Kill every dry-run child still running and remove their files."""
+    for _, proc, path, _ in _DRYRUN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if _DRYRUN:
+        shutil.rmtree(_DRYRUN[0][2].parent, ignore_errors=True)
+    _DRYRUN.clear()
+
+
+def join_dryrun_cells():
+    """The records of ``MESH_CELLS`` from their children, in order, each
+    with its child's wall s; a child that fails, or does not end within
+    ``DRYRUN_WAIT_S`` of the call, fails the run."""
+    t0 = time.perf_counter()
+    try:
+        recs = []
+        for (arch, shape, mesh_name), proc, path, log in _DRYRUN:
+            left = DRYRUN_WAIT_S - (time.perf_counter() - t0)
+            try:
+                rc = proc.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0 or not path.exists():
+                tail = log.read_text()[-3000:] if log.exists() else ""
+                raise AssertionError(f"dry run {arch} x {shape} x "
+                                     f"{mesh_name}: exit {rc}: {tail}")
+            recs.append(json.loads(path.read_text()))
+        return recs, time.perf_counter() - t0
+    finally:
+        stop_dryrun_cells()
+
+
 def cell_fields(rec):
     """A dry-run record without its timings and the card's memory."""
     if isinstance(rec, dict):
@@ -3259,35 +3487,40 @@ def dist_backend(group) -> str:
     return str(dist.get_backend(group))
 
 
-def mesh_model_check(mesh, cfg, dev, seed, batch, prompt, gen_len):
+def mesh_model_check(mesh, cfg, dev, seed, batch, prompt, gen_len, arch):
     """(b) ``cfg`` (random weights from ``seed``) on DTensors: params laid
     out by ``named_shardings``, the batch by ``batch_shardings``, a cache
-    by ``cache_shardings``, with ``MESH_DT_AXES``; its forward against the
-    plain forward on the card (relative max error below
-    ``MESH_DT_BOUND``) and a greedy ``decode_step`` loop (``prompt``
-    teacher-forced tokens, ``gen_len`` greedy ones) that must give the
-    plain loop's ids, every step's logits within the same bound. Wall s of each, first call and warm. Under
-    ``no_grad`` (a DTensor's views cannot be made in inference mode)."""
+    by ``cache_shardings``, with ``arch``'s axes of ``MESH_DT``; its
+    forward on ``MESH_DT``'s tokens a sequence against the plain forward
+    on the card (relative max error at most ``MESH_DT_BOUND``) and a
+    greedy ``decode_step`` loop (``prompt`` teacher-forced tokens,
+    ``gen_len`` greedy ones) that must give the plain loop's ids, every
+    step's logits within the same bound. Wall s of each, first call and
+    warm. Under ``no_grad`` (a DTensor's views cannot be made in inference
+    mode)."""
     import dataclasses
     import torch
     from torch.distributed.tensor import DTensor, distribute_tensor
     from repro_torch.distributed import sharding as Sh
     from repro_torch.launch.mesh import activate_mesh, placements
     from repro_torch.models import model as M
+    from repro_torch.train import pytree
+    axes, fwd_len, leaf_path = MESH_DT[arch]
     params = M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    mcfg = dataclasses.replace(cfg, **MESH_DT_AXES)
+    mcfg = dataclasses.replace(cfg, **axes)
     t0 = time.perf_counter()
     dp = Sh.distribute(params, Sh.named_shardings(params, mesh))
     torch.cuda.synchronize()
     distribute_s = time.perf_counter() - t0
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+        0, cfg.vocab_size, (batch, max(prompt, fwd_len))).astype(
+            np.int32)).to(dev)
 
     def laid(t, spec):
         return distribute_tensor(t, mesh, placements(spec, mesh))
 
-    dtok = laid(tokens, Sh.batch_spec(mesh, batch))
+    dtok = laid(tokens[:, :fwd_len], Sh.batch_spec(mesh, batch))
 
     def timed(fn):
         t = time.perf_counter()
@@ -3301,7 +3534,7 @@ def mesh_model_check(mesh, cfg, dev, seed, batch, prompt, gen_len):
 
     def fwd_plain():
         with torch.no_grad():
-            return M.forward(params, cfg, {"tokens": tokens})[0]
+            return M.forward(params, cfg, {"tokens": tokens[:, :fwd_len]})[0]
 
     got, mesh_first = timed(fwd_mesh)
     got, mesh_warm = timed(fwd_mesh)
@@ -3310,14 +3543,14 @@ def mesh_model_check(mesh, cfg, dev, seed, batch, prompt, gen_len):
     if not isinstance(got, DTensor):
         raise AssertionError(f"{cfg.name}: the mesh forward gave no DTensor")
     rel = rel_err(got.full_tensor(), want)
-    if not rel < MESH_DT_BOUND:
+    if not rel <= MESH_DT_BOUND:
         raise AssertionError(f"{cfg.name}: DTensor forward rel err {rel}")
 
     def greedy(p, c, on_mesh):
         cache = M.init_cache(c, batch, prompt + gen_len, dev)
         if on_mesh:
-            specs = Sh.cache_shardings(cache, mesh, batch)
-            cache = {k: laid(v, specs[k]) for k, v in cache.items()}
+            cache = pytree.map_tree(laid, cache, Sh.cache_shardings(
+                cache, mesh, batch))
         ids, logits = [], []
         with activate_mesh(mesh if on_mesh else None), \
                 torch.no_grad():
@@ -3337,17 +3570,20 @@ def mesh_model_check(mesh, cfg, dev, seed, batch, prompt, gen_len):
     (ids, lg), mesh_decode = timed(lambda: greedy(dp, mcfg, True))
     (ids1, lg1), plain_decode = timed(lambda: greedy(params, cfg, False))
     decode_rel = rel_err(lg, lg1)
-    if not (torch.equal(ids, ids1) and decode_rel < MESH_DT_BOUND):
+    if not (torch.equal(ids, ids1) and decode_rel <= MESH_DT_BOUND):
         raise AssertionError(f"{cfg.name}: DTensor greedy ids {ids.tolist()}"
                              f" (decode logits rel err {decode_rel}) != "
                              f"plain {ids1.tolist()}")
-    leaf = params["layers"]["moe"]["w_gate"]
+    leaf, dleaf = params, dp
+    for k in leaf_path:
+        leaf, dleaf = leaf[k], dleaf[k]
     return {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-            "batch": batch, "prompt": prompt, "gen": gen_len,
+            "batch": batch, "forward_tokens": fwd_len, "prompt": prompt,
+            "gen": gen_len,
             "axes": {k: list(v) if isinstance(v, tuple) else v
-                     for k, v in MESH_DT_AXES.items()},
-            "w_gate_placements": [str(q) for q in
-                                  dp["layers"]["moe"]["w_gate"].placements],
+                     for k, v in axes.items()},
+            "leaf": "/".join(leaf_path),
+            "leaf_placements": [str(q) for q in dleaf.placements],
             "weight_bytes": sum(q.numel() * q.element_size()
                                 for q in params.parameters()),
             "distribute_s": distribute_s,
@@ -3372,18 +3608,18 @@ def mesh_phase(dev, seed, card):
     mesh's data group equal to the plain single-device form
     (``compression._topk_project``) on a float32 and a bfloat16 leaf, a
     checkpoint restored onto the mesh bit for bit, ``mesh_moe_check`` (a)
-    and ``mesh_model_check`` (b), after the world of one is gone the
+    and ``mesh_model_check`` of each arch of ``MESH_DT`` (b), then the
     dry-run records of ``MESH_CELLS`` on fake worlds of their meshes'
-    sizes, which on the card must equal the torch release's
-    ``MESH_CELL_RECORDS`` (c). Prints five JSON lines."""
-    import shutil
+    sizes, joined from their child processes (``start_dryrun_cells``:
+    started after the kernel timing, or here), which on the card must
+    equal the torch release's ``MESH_CELL_RECORDS`` (c). Prints a JSON
+    line for (a), each model of (b), each cell of (c) and the phase."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     from repro_torch import configs
     from repro_torch.distributed import compression as C
     from repro_torch.distributed import sharding as Sh
-    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.train import CheckpointManager, pytree
@@ -3474,12 +3710,15 @@ def mesh_phase(dev, seed, card):
         print(json.dumps({"mesh_ep_body": rec["ep_body"], "card": card}),
               flush=True)
         torch.cuda.empty_cache()
-        rec["dtensor_model"] = mesh_model_check(
-            mesh, configs.get_config(MESH_DT_ARCH), dev, seed, MODEL_BATCH,
-            MESH_DT_PROMPT, MESH_DT_GEN)
-        print(json.dumps({"mesh_dtensor_model": rec["dtensor_model"],
-                          "card": card}), flush=True)
-        torch.cuda.empty_cache()
+        rec["dtensor_model"] = []
+        for arch in MESH_DT:
+            rec["dtensor_model"].append(mesh_model_check(
+                mesh, configs.get_config(arch), dev, seed, MODEL_BATCH,
+                MESH_DT_PROMPT, MESH_DT_GEN, arch))
+            print(json.dumps({"mesh_dtensor_model":
+                              rec["dtensor_model"][-1], "card": card}),
+                  flush=True)
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -3487,10 +3726,12 @@ def mesh_phase(dev, seed, card):
     release = torch.__version__.split("+")[0]
     if dev.type == "cuda" and release not in MESH_CELL_RECORDS:
         raise AssertionError(f"no dry-run records for torch {release}")
-    for (arch, shape, mesh_name), want, ref in zip(
-            MESH_CELLS, MESH_CELL_RECORDS.get(release, (None,) * 2),
+    start_dryrun_cells()  # where the run started with this phase
+    records, rec["dryrun_wait_s"] = join_dryrun_cells()
+    for (arch, shape, mesh_name), cell, want, ref in zip(
+            MESH_CELLS, records,
+            MESH_CELL_RECORDS.get(release, (None,) * len(MESH_CELLS)),
             MESH_CELL_REFERENCE):
-        cell = dryrun.run_cell(arch, shape, multi_pod=mesh_name == "multi")
         name = f"dry run {arch} x {shape} x {mesh_name}"
         if cell["status"] != "ok":
             raise AssertionError(f"{name}: {cell}")
@@ -3742,6 +3983,7 @@ def main(argv=None) -> int:
     largest = dict(_build.LARGEST)
     _build.capture(False)
     rows = kernel_timing(launches, largest, shared["part_keys"])
+    start_dryrun_cells()  # host work beside the phases that use the card
     # the query phases' tables and captured inputs go before the models
     del largest
     shared.clear()

@@ -33,9 +33,18 @@ rank 0 of a world of that many ranks on PyTorch's ``fake`` backend
     So the rank's FLOPs and score memory are 1/16 of a data rank's, as
     the reference's are; its FSDP weight slices are all-gathered over
     "data" inside the attention and reduce-scattered back;
+  * the recurrent layers split over "model" too (``models.ssm``): Mamba2
+    by rows of the sequence (its SSD's state carried across ranks),
+    mLSTM by query rows, sLSTM by the state's d, and their decodes on the
+    state as ``cache_shardings`` splits it;
   * one step (train / prefill / decode) runs on them under the mesh and
     ``hlo_cost.Trace``, which records the rank's own program: its local
-    ops with local shapes and every collective it issues;
+    ops with local shapes and every collective it issues. One loop is
+    not run step by step: sLSTM's time loop (xlstm-350m's 4,096 or
+    32,768 steps a layer) traces one step, its backward and its remat
+    recompute, counted once a token (``Trace.repeat``), the reference's
+    trip-count multiplication of its ``lax.scan``; the tensors the loop
+    keeps for its backward are allocated, so the peak holds them;
   * the record takes the reference's per-device keys: ``memory``
     (``argument_bytes``: the rank's blocks of the arguments;
     ``temp_bytes``: the most bytes the step's own allocations hold at

@@ -36,11 +36,18 @@ recorded.
     collective's result (``wait_tensor``, ``_wrap_tensor_autograd``)
     moves nothing, as a view.
 
-There is no loop trip-count multiplication: eager execution records every
-iteration of a layer loop as ops of its own.
+Eager execution records every iteration of a layer loop as ops of its
+own. The one loop whose iterations are too many to trace one by one is
+sLSTM's time loop (one step a token: 4,096 or 32,768 a layer): under a
+``Trace`` on the meta device, ``models.ssm`` runs one step inside
+``Trace.repeat(n)`` with ``n`` the trip count, and every op recorded
+there (FLOPs, bytes, collectives and their counts) counts ``n`` times in
+``analyze``, the reference's loop trip-count multiplication
+(``repro.launch.hlo_cost``'s ``while`` bodies).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import weakref
@@ -96,6 +103,7 @@ class Op(NamedTuple):
     #            scatter | copy | fill | alloc | collective | other
     ins: Tuple[Tuple[Tuple[int, ...], int], ...]
     outs: Tuple[Tuple[Tuple[int, ...], int], ...]
+    times: int = 1  # how many times it runs (``Trace.repeat``)
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,10 +188,14 @@ class Trace(TorchDispatchMode):
     storages its ops allocate that are alive at once: ``peak_live_bytes``
     is their most, over what was alive when the trace began (arguments are
     not counted). An op on DTensors is left to DTensor, whose local ops
-    and collectives come back here: the trace is one rank's."""
+    and collectives come back here: the trace is one rank's.
+
+    ``repeat(n)`` scopes ops that run ``n`` times (a loop body traced
+    once: ``models.ssm``'s sLSTM time loop)."""
 
     def __init__(self):
         super().__init__()
+        self.times = 1
         self.ops: List[Op] = []
         self.live_bytes = 0
         self.peak_live_bytes = 0
@@ -210,10 +222,21 @@ class Trace(TorchDispatchMode):
                 ins.append(_sig(t))
         outs = _tensors(out, [])
         self.ops.append(Op(name, kind, tuple(ins),
-                           tuple(_sig(t) for t in outs)))
+                           tuple(_sig(t) for t in outs), self.times))
         for t in outs:
             self._hold(t, fresh)
         return out
+
+    @contextlib.contextmanager
+    def repeat(self, n: int):
+        """Ops recorded inside count ``n`` times (nested scopes
+        multiply); their allocations count once toward the peak."""
+        outer = self.times
+        self.times = outer * n
+        try:
+            yield self
+        finally:
+            self.times = outer
 
     def _hold(self, t: torch.Tensor, fresh: bool) -> None:
         storage = t.untyped_storage()
@@ -236,6 +259,14 @@ class Trace(TorchDispatchMode):
             del self._refs[key]
 
 
+def active_trace():
+    """The innermost ``Trace`` on this thread's dispatch-mode stack, or
+    None."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return next((m for m in reversed(_get_current_dispatch_mode_stack())
+                 if isinstance(m, Trace)), None)
+
+
 def _nelems(shape) -> int:
     return math.prod(shape)
 
@@ -253,36 +284,37 @@ def analyze(trace) -> Dict[str, Any]:
         "collective_bytes_by_type": {c: 0.0 for c in COLLECTIVES},
         "collective_count_by_type": {c: 0 for c in COLLECTIVES}}
     for op in ops:
+        n = op.times
         res_b = _bytes(op.outs)
         if op.kind == "dot":
             k = op.ins[_DOTS[op.name]][0][-1]
-            totals["flops"] += 2.0 * sum(_nelems(s) for s, _ in op.outs) * k
+            totals["flops"] += n * 2.0 * sum(_nelems(s) for s, _ in op.outs) * k
         elif op.kind == "pointwise":
-            totals["flops"] += sum(_nelems(s) for s, _ in op.outs)
+            totals["flops"] += n * sum(_nelems(s) for s, _ in op.outs)
         elif op.kind == "reduction":
-            totals["flops"] += _nelems(op.ins[0][0]) if op.ins else 0
+            totals["flops"] += n * (_nelems(op.ins[0][0]) if op.ins else 0)
         elif op.kind == "softmax":
-            totals["flops"] += _SOFTMAX[op.name] * _nelems(op.ins[0][0])
+            totals["flops"] += n * _SOFTMAX[op.name] * _nelems(op.ins[0][0])
 
         if op.kind in ("view", "alloc"):
             continue
         if op.kind == "gather":
             idx_b = _bytes(op.ins[1:])
-            totals["bytes"] += 2 * res_b + idx_b
+            totals["bytes"] += n * (2 * res_b + idx_b)
         elif op.kind == "scatter":
-            totals["bytes"] += 2 * _bytes(op.ins[-1:])
+            totals["bytes"] += n * 2 * _bytes(op.ins[-1:])
         elif op.kind == "copy":
-            totals["bytes"] += _bytes(op.ins[1:]) + res_b
+            totals["bytes"] += n * (_bytes(op.ins[1:]) + res_b)
         elif op.kind == "fill":
-            totals["bytes"] += res_b
+            totals["bytes"] += n * res_b
         else:
-            totals["bytes"] += _bytes(op.ins) + res_b
+            totals["bytes"] += n * (_bytes(op.ins) + res_b)
 
         if op.kind == "collective":
             ctype = _COLLECTIVE_OF[op.name]
-            totals["collective_bytes_by_type"][ctype] += float(
+            totals["collective_bytes_by_type"][ctype] += n * float(
                 _bytes(op.ins) or res_b)
-            totals["collective_count_by_type"][ctype] += 1
+            totals["collective_count_by_type"][ctype] += n
     totals["collective_bytes_total"] = sum(
         totals["collective_bytes_by_type"].values())
     return totals

@@ -262,15 +262,24 @@ _ATTN_WEIGHTS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 def _attn_specs(params: Params, mesh, keep) -> Dict[str, Any]:
     """Each attention weight's spec by the sharding rules
     (``distributed.sharding``: d_model over "data", the heads over
-    "model", else head_dim), with every axis that is neither "model" nor
-    in ``keep`` (the axes the batch splits over) left whole: a weight's
-    block is gathered inside the body only over an axis its output is
-    split over, so the gradient's reduce-scatter sums distinct parts."""
+    "model", else head_dim): ``_rule_specs`` of the attention's leaves."""
+    return _rule_specs("attn", params, tuple(
+        n for n in _ATTN_WEIGHTS if n in params), mesh, keep)
+
+
+def _rule_specs(kind: str, params: Params, names, mesh,
+                keep) -> Dict[str, Any]:
+    """The spec of each leaf ``params[n]`` of a ``kind`` layer (``attn``,
+    ``mamba``, ``mlstm``, ``slstm``) by the sharding rules, with every
+    axis that is neither "model" nor in ``keep`` (the axes the batch
+    splits over) left whole: a weight's block is gathered inside a body
+    only over an axis its output is split over, so the gradient's
+    reduce-scatter sums distinct parts."""
     from repro_torch.distributed import sharding as Sh
     keep = set(_axes_of(keep)) | {"model"}
     specs = {}
-    for n in (n for n in _ATTN_WEIGHTS if n in params):
-        rule = Sh._spec_for("attn/" + n, tuple(params[n].shape), mesh)
+    for n in names:
+        rule = Sh._spec_for(f"{kind}/{n}", tuple(params[n].shape), mesh)
         specs[n] = P(*(e if set(_axes_of(e)) <= keep else None
                        for e in rule))
     return specs

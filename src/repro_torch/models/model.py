@@ -35,8 +35,10 @@ expert parallelism under an ambient ``DeviceMesh``), the Mamba2 heads
 (``ssm_head_axis``) and the logits (``vocab_axis``). The attention splits
 over "model" on a mesh by itself (``layers.causal_attention``), so
 ``score_seq_axis``, kept so the config holds the reference's fields, has
-no effect. On plain tensors each constraint is the
-identity, so a call with no DTensor computes what it computed before.
+no effect; so do the recurrent layers (``models.ssm``; Mamba2 by the
+sequence unless ``ssm_head_axis`` splits its heads). On plain tensors
+each constraint is the identity, so a call with no DTensor computes what
+it computed before.
 """
 from __future__ import annotations
 
@@ -395,8 +397,10 @@ def _mamba_block(cfg: ModelConfig, lp, x):
 
 
 def _xlstm_pair_block(cfg: ModelConfig, lp, x):
-    h = x + S.mlstm(lp["mlstm"], rmsn(lp["ln_m"], x))
-    return h + S.slstm(lp["slstm"], rmsn(lp["ln_s"], h))
+    h = x + S.mlstm(lp["mlstm"], rmsn(lp["ln_m"], x),
+                    batch_axes=cfg.act_batch_axes)
+    return h + S.slstm(lp["slstm"], rmsn(lp["ln_s"], h),
+                       batch_axes=cfg.act_batch_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -568,6 +572,16 @@ def _vocab_ids(logits: torch.Tensor) -> torch.Tensor:
     return L.replicated(ids, logits).redistribute(logits.device_mesh, pl)
 
 
+def _grad_as_value(t):
+    """A DTensor ``t`` whose gradient comes back laid out as ``t`` is (a
+    redistribution to its own placements). A sum over the split vocab
+    hands its summand a whole gradient (an expand); torch 2.11's DTensor
+    then takes ``where``'s and ``exp``'s gradients whole, [b, l, V] a rank
+    (13 GB in xlstm-350m's train step), where 2.13 keeps the rank's block;
+    laid out first, the gradient is the rank's slice on both."""
+    return t.redistribute(t.device_mesh, t.placements)
+
+
 def loss_fn(params: ParamTree, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """Causal-LM loss (next-token). Padded-vocab logits are masked.
@@ -593,10 +607,10 @@ def loss_fn(params: ParamTree, cfg: ModelConfig,
             # the batch layout: a gradient in another would gather the
             # logits), the logits never gathered
             top = L.batch_split(logits.detach().amax(dim=-1, keepdim=True))
-            logz = L.batch_split((logits - top).exp().sum(dim=-1)).log() \
-                + top[..., 0]
-            gold = L.batch_split(torch.where(labels[..., None] == vocab,
-                                             logits, 0.0).sum(dim=-1))
+            logz = L.batch_split(_grad_as_value(
+                (logits - top).exp()).sum(dim=-1)).log() + top[..., 0]
+            gold = L.batch_split(_grad_as_value(torch.where(
+                labels[..., None] == vocab, logits, 0.0)).sum(dim=-1))
         else:
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -670,9 +684,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _write_state(views: Mapping[str, torch.Tensor],
                  new: Mapping[str, torch.Tensor]) -> None:
-    """The reference's ``dynamic_update_slice`` of a layer's state."""
+    """The reference's ``dynamic_update_slice`` of a layer's state (a
+    step on a mesh writes its blocks in place and returns the views)."""
     for k, v in views.items():
-        v.copy_(new[k])
+        if new[k] is not v:
+            v.copy_(new[k])
 
 
 def _mamba_decode(lp, x, states, index):

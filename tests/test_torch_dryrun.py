@@ -22,14 +22,20 @@ CPU.
   and dot FLOPs equal; the expert-parallel body's all-gathers,
   all-to-alls and (in the backward) reduce-scatters, counts and bytes,
   equal forward and backward.
-* Full-width, two-layer copies of four cells on (16, 16), both packages
+* Full-width, two-layer copies of nine cells on (16, 16), both packages
   (the reference compiled for 256 forced host devices in a subprocess):
-  each one's FLOPs a device within 0.8-1.25x of the reference's.
+  each one's FLOPs a device within 0.8-1.25x of the reference's; four of
+  them zamba2-1.2b's and xlstm-350m's (the recurrent layers split over
+  "model").
+* sLSTM's time loop counted once a token (``hlo_cost.Trace.repeat``) on
+  a small xlstm copy as rank 0 of a (2, 4) world: the same FLOPs and
+  collectives as the trace of every step, and no lower a peak.
 * ``run_cell`` with ``status == "ok"`` on three full-size cells as rank 0
   of the (16, 16) mesh, every op of the rank on the meta device; the
-  (2, 16, 16) record of qwen2-1.5b x decode_32k equal to the one
+  (2, 16, 16) record of qwen2-1.5b x decode_32k and the (16, 16) records
+  of xlstm-350m and zamba2-1.2b x train_4k equal to the ones
   ``chip_smoke.py`` holds the card's run to; the reference's figures
-  written into ``chip_smoke.py`` equal to its dry run of both cells; the
+  written into ``chip_smoke.py`` equal to its dry run of every cell; the
   CLI's records, skips and errors.
 """
 import dataclasses
@@ -45,6 +51,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_flatten
 
+import chip_smoke
 import torch_dryrun_twins as Twins
 import torch_mesh_world as W
 from repro.launch import hlo_cost as RH
@@ -333,9 +340,15 @@ def test_expert_parallel_body_collectives_equal_the_reference(ref, port,
 
 # (arch, shape) of the two-layer twins: attention split by heads (yi's 32
 # heads, its 4 kv heads by head_dim), by query rows (smollm's 15 heads and
-# qwen2's 12 on 16 ranks), and decode on a cache split over its sequence
+# qwen2's 12 on 16 ranks), and decode on a cache split over its sequence;
+# the recurrent layers split over "model" (Mamba2 by rows, mLSTM by query
+# rows, sLSTM by the state's d, its loop counted once a token) and their
+# decodes on states split by cache_shardings
 TWO_LAYER_CELLS = (("yi_9b", "train_4k"), ("smollm_360m", "train_4k"),
-                   ("qwen2_1p5b", "prefill_32k"), ("qwen2_1p5b", "decode_32k"))
+                   ("qwen2_1p5b", "prefill_32k"), ("qwen2_1p5b", "decode_32k"),
+                   ("zamba2_1p2b", "train_4k"), ("zamba2_1p2b", "prefill_32k"),
+                   ("xlstm_350m", "train_4k"), ("xlstm_350m", "prefill_32k"),
+                   ("xlstm_350m", "decode_32k"))
 
 _REF_CELLS = r"""
 import dataclasses, json, sys
@@ -377,6 +390,36 @@ def test_two_layer_cells_flops_a_device_near_the_reference(monkeypatch):
     assert set(got) == set(want)
     for cell, flops in want.items():
         assert 0.8 <= got[cell] / flops <= 1.25, (cell, got[cell], flops)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_slstm_loop_counted_once_a_token(shape, monkeypatch):
+    """A small xlstm copy (two layers, d_model 64, 32 tokens, batch 4) as
+    rank 0 of a (2, 4) world of eight, traced with sLSTM's loop counted
+    (one step in ``Trace.repeat(l)``, its backward and the remat
+    recompute likewise) and step by step: the same FLOPs and collectives
+    (counts and bytes), a peak no lower than 0.9x the per-token trace's,
+    and far fewer recorded ops. The two differ only in ops that move
+    bytes: the unbind and stack of the per-step tensors."""
+    get = TC.get_config
+    monkeypatch.setattr(TC, "get_config", lambda a: dataclasses.replace(
+        get(a), n_layers=2, d_model=64, vocab_size=256))
+    monkeypatch.setitem(TC.SHAPES, shape, (32, 4, TC.SHAPES[shape][2]))
+    monkeypatch.setattr(D, "make_production_mesh", lambda multi_pod: (
+        TMesh.ShapeMesh((2, 4), ("data", "model"))))
+    counted = D.run_cell("xlstm_350m", shape, multi_pod=False)
+    # no trace in sight: the loop runs every step
+    monkeypatch.setattr(TH, "active_trace", lambda: None)
+    stepped = D.run_cell("xlstm_350m", shape, multi_pod=False)
+    assert counted["status"] == stepped["status"] == "ok"
+    assert counted["cost"]["flops_per_device"] == \
+        stepped["cost"]["flops_per_device"]
+    for key in ("count_by_type", "bytes_by_type"):
+        assert counted["collectives"][key] == stepped["collectives"][key]
+    assert counted["collectives"]["count_by_type"]["all-gather"] > 32
+    peak = "peak_estimate_bytes"
+    assert counted["memory"][peak] >= 0.9 * stepped["memory"][peak]
+    assert counted["aten_ops"] < stepped["aten_ops"] / 2
 
 
 class _MetaTrace(TH.Trace):
@@ -427,7 +470,6 @@ def test_multi_pod_record_equals_the_card_record():
     EP body's own exchanges; DTensor's redistributions are their own.
     Each record's FLOPs and peak a device lie within the bounds the card
     run holds them to of the reference's."""
-    import chip_smoke
     arch, shape, mesh = chip_smoke.MESH_CELLS[1]
     rec = D.run_cell(arch, shape, multi_pod=mesh == "multi")
     assert rec["n_devices"] == 512
@@ -453,6 +495,25 @@ def test_multi_pod_record_equals_the_card_record():
                 assert lo <= got[key] / want[key] <= hi, (cell["arch"], key)
 
 
+@pytest.mark.parametrize("i", [2, 3])
+def test_recurrent_train_cell_record_equals_the_card_record(i):
+    """xlstm-350m and zamba2-1.2b x train_4k on (16, 16) (sLSTM's loop
+    counted once a token, the recurrent layers split over "model"): the
+    record ``chip_smoke.py`` requires of the card's run under this torch
+    release, every release's within the bounds of the reference's."""
+    arch, shape, mesh = chip_smoke.MESH_CELLS[i]
+    assert TC.get_config(arch).family in ("xlstm", "hybrid_mamba")
+    rec = D.run_cell(arch, shape, multi_pod=mesh == "multi")
+    records = chip_smoke.MESH_CELL_RECORDS
+    assert chip_smoke.cell_fields(rec) == \
+        records[torch.__version__.split("+")[0]][i]
+    want = chip_smoke.MESH_CELL_REFERENCE[i]
+    for cells in records.values():
+        got = {**cells[i]["cost"], **cells[i]["memory"]}
+        for key, (lo, hi) in chip_smoke.MESH_CELL_BOUNDS.items():
+            assert lo <= got[key] / want[key] <= hi, (arch, key)
+
+
 _REF_CELL = r"""
 import json, sys
 from repro.launch import dryrun as D
@@ -462,13 +523,13 @@ print(json.dumps({"flops_per_device": rec["cost"]["flops_per_device"],
 """
 
 
-@pytest.mark.parametrize("i", [0, 1])
+@pytest.mark.parametrize("i", range(len(chip_smoke.MESH_CELLS)))
 def test_mesh_cell_reference_equals_the_reference_dry_run(i):
     """``chip_smoke.MESH_CELL_REFERENCE``, the reference's FLOPs and peak a
     device that the card run bounds the port's by, equal to the
-    reference's own dry run of the cell (compiled for 256 / 512 forced
+    reference's own dry run of each cell (compiled for 256 / 512 forced
     host devices in a subprocess)."""
-    import chip_smoke
+    assert len(chip_smoke.MESH_CELL_REFERENCE) == len(chip_smoke.MESH_CELLS)
     arch, shape, mesh = chip_smoke.MESH_CELLS[i]
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count="

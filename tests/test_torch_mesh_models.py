@@ -27,6 +27,15 @@ below 1e-5; slots equal exactly.
   * (vii) ``attention_decode`` on caches split over the sequence, the kv
     heads and head_dim, two steps in two ranks' stripes: y and both
     caches against one device.
+  * (viii) the recurrent layers: ``mamba2`` split by the sequence (the
+    conv's halo and the SSD's state carried across ranks) and by heads,
+    ``mlstm`` by query rows (3 heads, and 2), ``slstm`` by the state's d:
+    y and the gradient of every leaf and of x against ``jax.grad`` of the
+    reference on its mesh and against one device; each rank's mLSTM
+    score block holds half the rows; the decodes of Mamba2, mLSTM (``C``
+    split by key rows, and by heads) and sLSTM on states laid out by
+    ``cache_shardings``, two steps: y and every state leaf against one
+    device.
   * (v) granite-moe (``moe_expert_axis``), zamba2 (``ssm_head_axis``) and
     smollm (``act_seq_axis``, ``vocab_axis``; 3 heads on a model axis of
     2, the attention split by query rows) smoke forwards on DTensors
@@ -147,6 +156,30 @@ for name, (*_, q_chunk) in W.ATTN.items():
     res[f"vi/{name}/y"], res[f"vi/{name}/gx"] = np.asarray(y), np.asarray(gx)
     flat(f"vi/{name}/g", gp)
 
+from repro.models import ssm as RS
+for name, (kind, _, head_axis) in W.REC.items():
+    p = tree(f"rec/{name}/p")
+    x, cot = (jnp.asarray(inp[f"rec/{name}/{k}"]) for k in ("x", "cot"))
+    if kind == "mamba2":
+        f = lambda p_, x_: RS.mamba2(p_, x_, W.REC_CHUNK, ("data",), head_axis)
+    else:
+        f = getattr(RS, kind)
+
+    def val(p_, x_):
+        y = f(p_, x_)
+        return jnp.sum(y * cot), y
+
+    prefix = "mamba" if kind == "mamba2" else kind
+    sh = jax.tree.map(lambda s: NamedSharding(mesh, s),
+                      Sh.param_shardings({prefix: p}, mesh))[prefix]
+    with activate_mesh(mesh):
+        (_, y), (gp, gx) = jax.jit(
+            jax.value_and_grad(val, argnums=(0, 1), has_aux=True),
+            in_shardings=(sh, NamedSharding(mesh, P("data", "model", None)))
+        )(p, x)
+    res[f"viii/{name}/y"], res[f"viii/{name}/gx"] = np.asarray(y), np.asarray(gx)
+    flat(f"viii/{name}/g", gp)
+
 arch = "granite_moe_3b_a800m"
 cfg = W.smoke_config(dataclasses.replace(configs.get_smoke_config(arch),
                                          dtype=jnp.float32), arch, 1.25)
@@ -201,6 +234,24 @@ def _inputs(path):
                 (W.ATTN_B, W.DECODE_S, kv, hd)).astype(f32)
         inp[f"dec/{name}/x"] = rng.standard_normal(
             (len(W.DECODE_POS), W.ATTN_B, 1, d)).astype(f32)
+    from repro_torch.models import ssm as TS
+    for name, (kind, dims, _) in W.REC.items():
+        p = getattr(TS, "init_" + kind)(gen, *dims, dtype=torch.float32,
+                                        device=torch.device("cpu"))
+        _flat(f"rec/{name}/p", {k: v.numpy() if isinstance(v, torch.Tensor)
+                                else {kk: vv.numpy() for kk, vv in v.items()}
+                                for k, v in p.items()}, inp)
+        for k in ("x", "cot"):
+            inp[f"rec/{name}/{k}"] = rng.standard_normal(
+                (W.REC_B, W.REC_L, dims[0])).astype(f32)
+        inp[f"rec/{name}/dec_x"] = rng.standard_normal(
+            (2, W.REC_B, 1, dims[0])).astype(f32)
+        st = getattr(TS, kind + "_init_state")(
+            p, W.REC_B, *(() if kind == "mamba2" else (dims[0],)))
+        for k, v in st.items():  # a state mid-sequence: finite, m too
+            a = rng.standard_normal(tuple(v.shape)).astype(f32)
+            inp[f"rec/{name}/st/{k}"] = np.abs(a) + 0.5 if k == "nvec" \
+                else a
     models = [("mini", W.mini_config(TC.get_smoke_config("qwen2_1p5b")),
                (8, 64))]
     models += [(arch, TC.get_smoke_config(arch), (4, 16))
@@ -357,4 +408,48 @@ def test_decode_on_a_split_cache_equals_one_device(runs, name, layout):
     for i in range(len(W.DECODE_POS)):
         key = f"vii/{name}/{layout}/{i}"
         for part in ("y", "k", "v"):
+            _close(port[f"{key}/{part}"], port[f"{key}/{part}/one"])
+
+
+@pytest.mark.parametrize("name", list(W.REC))
+def test_recurrent_layer_on_the_mesh_equals_the_reference(runs, name):
+    """``mamba2`` split by the sequence and by heads, ``mlstm`` by query
+    rows and ``slstm`` by the state's d: y and the gradient of x and of
+    every weight against ``jax.grad`` of the reference on its (2, 2) mesh
+    and against one device."""
+    port, ref = runs
+    pre = f"viii/{name}"
+    leaves = sorted(k[len(pre + "/g/"):] for k in ref
+                    if k.startswith(pre + "/g/"))
+    assert leaves and leaves == sorted(k[len(pre + "/g/"):] for k in port
+                                       if k.startswith(pre + "/g/"))
+    for key in ["y", "gx"] + [f"g/{k}" for k in leaves]:
+        got = port[f"{pre}/{key}"]
+        _close(got, ref[f"{pre}/{key}"])
+        one = key.replace("/", "1/", 1) if "/" in key else key + "1"
+        _close(got, port[f"{pre}/{one}"])
+
+
+@pytest.mark.parametrize("name", [n for n in W.REC if n.startswith("mlstm")])
+def test_each_rank_mixes_half_the_mlstm_rows(runs, name):
+    """A rank's mLSTM score blocks [b, l_q, l, h] (the stabiliser's max
+    over them): its batch rows, every key and head, half the query rows."""
+    port, _ = runs
+    blocks, one = port[f"viii/{name}/scores"], port[f"viii/{name}/scores1"]
+    heads = W.REC[name][1][1]
+    assert blocks.tolist() == [[W.REC_B // 2, W.REC_L // 2, W.REC_L, heads]]
+    assert one.tolist() == [[W.REC_B, W.REC_L, W.REC_L, heads]]
+
+
+@pytest.mark.parametrize("name", W.REC_DECODE)
+def test_recurrent_decode_on_a_split_state_equals_one_device(runs, name):
+    """Two decode steps on a state laid out by ``cache_shardings`` (each
+    rank writes its block in place): y and every state leaf."""
+    port, _ = runs
+    for i in range(2):
+        key = f"viii/{name}/dec/{i}"
+        parts = [k[len(key) + 1:-len("/one")] for k in port
+                 if k.startswith(key + "/") and k.endswith("/one")]
+        assert "y" in parts and len(parts) > 2
+        for part in parts:
             _close(port[f"{key}/{part}"], port[f"{key}/{part}/one"])

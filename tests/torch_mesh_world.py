@@ -33,6 +33,13 @@ Scenarios (the names of the saved arrays start with them):
     sequence, the kv heads or head_dim (``DECODE``), two steps whose
     positions fall in different ranks' stripes: y and both caches, beside
     one device.
+  * ``viii``: the recurrent layers (``REC``): ``mamba2`` split by the
+    sequence (plain tensors under the ambient mesh) and by heads (DTensor
+    weights and x, ``head_axis="model"``), ``mlstm`` and ``slstm``: y and
+    the gradients of ``sum(y * cot)``, beside one device, and the shape
+    of every mLSTM score block the rank's stabiliser took; their decodes
+    (``REC_DECODE``) on states laid out by ``cache_shardings``, two steps:
+    y and every state leaf, beside one device.
 """
 import dataclasses
 import sys
@@ -76,6 +83,17 @@ ATTN_B, ATTN_L = 4, 32
 DECODE = (("heads", "seq"), ("heads", "kv"), ("heads_hd", "hd"),
           ("rows", "seq"))
 DECODE_S, DECODE_POS = 8, (3, 5)
+# recurrent layers of ``viii``: name -> (layer, its ``init_*`` arguments
+# after the generator, mamba2's head_axis), on a batch of REC_B x REC_L;
+# mlstm's 3 heads do not divide the model axis (``C`` split by key rows),
+# mlstm_heads' 2 do (``C`` and ``m`` by heads)
+REC = {"mamba2": ("mamba2", (32, 8, 8), None),
+       "mamba2_heads": ("mamba2", (32, 8, 8), "model"),
+       "mlstm": ("mlstm", (24, 3), None),
+       "mlstm_heads": ("mlstm", (24, 2), None),
+       "slstm": ("slstm", (24, 3), None)}
+REC_B, REC_L, REC_CHUNK = 4, 16, 4
+REC_DECODE = ("mamba2", "mlstm", "mlstm_heads", "slstm")
 CACHE_SPECS = {"seq": ("data", "model", None, None),
                "kv": ("data", None, "model", None),
                "hd": ("data", None, None, "model")}
@@ -264,6 +282,89 @@ def _attention_scenarios(mesh, inp, out):
                 out[f"{key}/{k}/one"] = _host(c1).copy()
 
 
+def rec_params(name, inp):
+    """``viii``'s weights of layer ``name`` as torch tensors."""
+    return {k: ({kk: torch.from_numpy(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else torch.from_numpy(v))
+            for k, v in nest(inp, f"rec/{name}/p").items()}
+
+
+def rec_layer(name):
+    """``viii``'s forward of layer ``name``: f(params, x, batch_axes)."""
+    from repro_torch.models import ssm as S
+    kind, _, head_axis = REC[name]
+    if kind == "mamba2":
+        return lambda p, x, axes: S.mamba2(p, x, REC_CHUNK, axes, head_axis)
+    return lambda p, x, axes: getattr(S, kind)(p, x, batch_axes=axes)
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _named(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _recurrent_scenarios(mesh, inp, out):
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.models import ssm as S
+    for name, (kind, _, head_axis) in REC.items():
+        p = rec_params(name, inp)
+        x, cot = (torch.from_numpy(inp[f"rec/{name}/{k}"]) for k in ("x", "cot"))
+        f = rec_layer(name)
+        for tag, on_mesh in (("", True), ("1", False)):
+            leaves = _tree_map(lambda t: t.clone().requires_grad_(), p)
+            xg = x.clone().requires_grad_()
+            if on_mesh and head_axis is not None:  # DTensors split by heads
+                tree = {"mamba": p}
+                leaves = _tree_map(lambda t: t.requires_grad_(), Sh.distribute(
+                    tree, Sh.named_shardings(tree, mesh))["mamba"])
+                xg = distribute_tensor(x, mesh, TMesh.placements(
+                    TMesh.P("data", "model", None), mesh)).requires_grad_()
+            args = leaves, xg
+            with TMesh.activate_mesh(mesh if on_mesh else None), \
+                    TH.Trace() as trace:
+                y = f(*args, ("data",))
+            if isinstance(y, DTensor):
+                y = y.full_tensor()
+            (y * cot).sum().backward()
+            out[f"viii/{name}/y{tag}"] = _host(y)
+            out[f"viii/{name}/gx{tag}"] = _host(args[1].grad)
+            out.update({f"viii/{name}/g{tag}/{k}": _host(v.grad)
+                        for k, v in _named(args[0])})
+            out[f"viii/{name}/scores{tag}"] = np.array(
+                [op.ins[0][0] for op in trace.ops if op.name == "amax"])
+    for name in REC_DECODE:
+        kind = REC[name][0]
+        p = rec_params(name, inp)
+        one = {k: torch.from_numpy(v).to(  # the window bf16, as the model's
+            torch.bfloat16 if k == "conv" else torch.float32)
+            for k, v in nest(inp, f"rec/{name}/st").items()}
+        stacked = {k: v[None] for k, v in one.items()}
+        specs = Sh.cache_shardings(stacked, mesh, REC_B)
+        laid = {k: distribute_tensor(v.clone(), mesh,
+                                     TMesh.placements(specs[k], mesh))
+                for k, v in stacked.items()}
+        step = getattr(S, kind + "_decode")
+        for i in range(2):
+            x = torch.from_numpy(inp[f"rec/{name}/dec_x"][i])
+            with torch.no_grad():
+                y1, one = step(p, x, one)
+                with TMesh.activate_mesh(mesh):
+                    y, _ = step(p, x, {k: v[0] for k, v in laid.items()})
+            key = f"viii/{name}/dec/{i}"
+            out[key + "/y"], out[key + "/y/one"] = _host(y), _host(y1)
+            for k in one:
+                out[f"{key}/{k}"] = _host(laid[k].float())[0].copy()
+                out[f"{key}/{k}/one"] = _host(one[k].float()).copy()
+
+
 def main(argv):
     rank, store, inp_path, out_path = argv
     rank = int(rank)
@@ -275,7 +376,8 @@ def main(argv):
         out = {}
         for name, run in (("moe", _moe_scenarios), ("mini", _mini_scenario),
                           ("smoke", _smoke_scenarios),
-                          ("attention", _attention_scenarios)):
+                          ("attention", _attention_scenarios),
+                          ("recurrent", _recurrent_scenarios)):
             t0 = time.perf_counter()
             run(mesh, inp, out)
             out[f"wall/{name}"] = np.array(time.perf_counter() - t0)

@@ -770,7 +770,11 @@ class Query:
         row-terminal ``order_by`` finalizes host-side into a
         ``RankedTable`` (exact-size arrays, dictionary codes decoded)."""
         key_sets = tuple(self._prepare_inputs())
-        out = self.build()(self.table.columns, key_sets)
+        program = self.build()
+        # host time to launch the operators (and any wait for the device
+        # inside them)
+        with telemetry.span("plan.program", qid=self.qid):
+            out = program(self.table.columns, key_sets)
         if isinstance(out, order_mod.OrderedRows):
             return order_mod.ranked_table_from_state(
                 order_mod.host_block(out), self._ranked_dictionaries())
@@ -792,7 +796,8 @@ class Query:
                                  torch.tensor(len(keys), dtype=torch.int32,
                                               device=dev)))
             elif isinstance(op, _JoinOp):
-                prepared.append(self._prepare_join_side(op))
+                with telemetry.span("plan.join_side", qid=self.qid):
+                    prepared.append(self._prepare_join_side(op))
         return prepared
 
     def _prepare_join_side(self, op: _JoinOp):

@@ -50,8 +50,12 @@ dataset, built from four pieces that reuse the machinery of §4/§10/§12:
     this under concurrent submitter threads).
 
 Serving observability: ``QueryServer.stats()`` reports QPS over the
-serving window, p50/p99/mean latency, plan-cache and residency hit rates,
-and the scan-sharing split. Knobs: ``DispatchPolicy.serve_budget_bytes`` /
+serving window, p50/p99/mean latency over the last ``LATENCY_HISTORY``
+completions, plan-cache and residency hit rates, and the scan-sharing
+split. A ticket's ``stats`` add ``queue_ms`` (submission to admission)
+and ``prep_ms`` (its preparation on the drain thread), the times of its
+``serve.queue`` and ``serve.prep`` spans. Knobs:
+``DispatchPolicy.serve_budget_bytes`` /
 ``plan_cache_size`` / ``serve_max_batch`` (env ``REPRO_SERVE_BUDGET_BYTES``
 / ``REPRO_PLAN_CACHE_SIZE`` / ``REPRO_SERVE_MAX_BATCH``).
 
@@ -104,6 +108,8 @@ from repro_torch.core.partition import (
 from repro_torch.core.plan import _AggOp, _GroupByOp
 from repro_torch.core.stream import Pending
 from repro_torch.device import resolve_device
+
+LATENCY_HISTORY = 1 << 16  # completions whose latencies stats() ranks
 
 
 def _on_device(dev: torch.device):
@@ -262,6 +268,8 @@ class Ticket:
     deadline: Optional[float] = None  # absolute perf_counter budget
     cancel_requested: threading.Event = dataclasses.field(
         default_factory=threading.Event)
+    queue_ms: float = 0.0  # submission to admission into a batch
+    prep_ms: float = 0.0  # preparation on the drain thread (_prep)
 
 
 class _Prepped:
@@ -362,7 +370,7 @@ class QueryServer:
         self._next_qid = 0
         # serving-window accounting (guarded by _stats_lock)
         self._stats_lock = threading.Lock()
-        self._latencies_ms: List[float] = []
+        self._latencies_ms: "deque[float]" = deque(maxlen=LATENCY_HISTORY)
         self._completed = 0
         self._errors = 0
         self._first_submit: Optional[float] = None
@@ -539,6 +547,12 @@ class QueryServer:
             for t, err in reaped:  # outside the lock: _finish takes others
                 self._finish(t, error=err)
             if batch is not None:
+                admitted = time.perf_counter()
+                for t in batch:
+                    t.queue_ms = (admitted - t.submitted) * 1e3
+                    # from the client's thread to this one: ring only
+                    telemetry.interval("serve.queue", t.submitted, admitted,
+                                       qid=t.query.qid, ticket=t.qid)
                 return batch
             if not block or closed:
                 return None
@@ -583,32 +597,37 @@ class QueryServer:
 
     def _prep(self, ticket: Ticket) -> _Prepped:
         q = ticket.query
-        # join/semi-join prep FIRST: it records host_keys, which the full
-        # zone-map pruning below (unlike the admission superset) consumes
-        key_sets = tuple(q._prepare_inputs())
-        sig = plan_mod.plan_signature(q.ops)
-        entry, hit = self.plans.get_or_build(sig, self._build_entry(q))
-        ticket.plan_hit = hit
-        telemetry.instant("serve.plan", qid=q.qid, ticket=ticket.qid,
-                          hit=hit)
-        todo = []
-        for i, p in enumerate(self.table.partitions):
-            ok, cause = partition_match_verdict(p, q.ops, self.table)
-            telemetry.instant("zone_map", qid=q.qid, part=i,
-                              verdict="visit" if ok else "skip", cause=cause)
-            if ok:
-                todo.append((i, p))
-        item = _Prepped(ticket, key_sets, entry, hit, todo, q.terminal_op(),
-                        q.order_op())
-        # served spans are tagged with the QUERY's process-unique qid (the
-        # same id a solo run() would use), so one trace separates
-        # co-batched queries; the ticket id stays a server-local counter
-        item.stats.qid = q.qid
-        if isinstance(item.terminal, _AggOp):
-            _agg_folder(item, self.table.col_dtypes)
-        elif isinstance(item.terminal, _GroupByOp):
-            _groupby_folder(item)
-        return item
+        with telemetry.timed("serve.prep", "main", ticket, "prep_ms",
+                             qid=q.qid, ticket=ticket.qid):
+            # join/semi-join prep FIRST: it records host_keys, which the
+            # full zone-map pruning below (unlike the admission superset)
+            # consumes
+            key_sets = tuple(q._prepare_inputs())
+            sig = plan_mod.plan_signature(q.ops)
+            entry, hit = self.plans.get_or_build(sig, self._build_entry(q))
+            ticket.plan_hit = hit
+            telemetry.instant("serve.plan", qid=q.qid, ticket=ticket.qid,
+                              hit=hit)
+            todo = []
+            for i, p in enumerate(self.table.partitions):
+                ok, cause = partition_match_verdict(p, q.ops, self.table)
+                telemetry.instant("zone_map", qid=q.qid, part=i,
+                                  verdict="visit" if ok else "skip",
+                                  cause=cause)
+                if ok:
+                    todo.append((i, p))
+            item = _Prepped(ticket, key_sets, entry, hit, todo,
+                            q.terminal_op(), q.order_op())
+            # served spans are tagged with the QUERY's process-unique qid
+            # (the same id a solo run() would use), so one trace separates
+            # co-batched queries; the ticket id stays a server-local
+            # counter
+            item.stats.qid = q.qid
+            if isinstance(item.terminal, _AggOp):
+                _agg_folder(item, self.table.col_dtypes)
+            elif isinstance(item.terminal, _GroupByOp):
+                _groupby_folder(item)
+            return item
 
     def _execute_batch(self, batch: List[Ticket]) -> None:
         items: List[_Prepped] = []
@@ -685,7 +704,6 @@ class QueryServer:
         pass_stats = stream.StreamStats(prefetch_depth=depth)
         for it in items:
             it.stats.prefetch_depth = depth
-        tel = telemetry.registry() if telemetry.enabled() else None
 
         def transfer(part_item):
             pid, part = part_item
@@ -706,11 +724,20 @@ class QueryServer:
             payer = takers[0] if takers else None  # miss -> first taker
             for i in takers:
                 st = items[i].stats
-                t0 = time.perf_counter()
+                src = ("lru" if was_hit else "miss" if i == payer
+                       else "shared")
                 try:
-                    faults.maybe_inject("program", pid)
-                    partials[i] = items[i].entry.program(
-                        cols, items[i].key_sets, part.rows)
+                    # one span per (query, partition) pair: the shared
+                    # pass fans a single scan out to every subscriber, and
+                    # each span carries that query's qid plus how the
+                    # bytes were sourced — so per-query trace sums
+                    # reconcile with stats(). It times the host's launch
+                    # of the program (and any wait for the device in it).
+                    with stream.stage(st, "compute_ms", "serve.program",
+                                      "main", {"part": pid, "src": src}):
+                        faults.maybe_inject("program", pid)
+                        partials[i] = items[i].entry.program(
+                            cols, items[i].key_sets, part.rows)
                 except DeviceOOMError:
                     raise  # allocator pressure is pass-level, not per-query
                 except Exception as exc:  # noqa: BLE001 - isolate
@@ -719,24 +746,13 @@ class QueryServer:
                                            error=type(exc).__name__)
                     reap(i, exc)
                     continue
-                t1 = time.perf_counter()
                 st.executed += 1
-                if was_hit:
+                if src == "lru":
                     st.lru_hits += 1
-                    src = "lru"
-                elif i == payer:
+                elif src == "miss":
                     st.transferred += 1
-                    src = "miss"
                 else:
                     st.shared_hits += 1
-                    src = "shared"
-                # one span per (query, partition) pair: the shared pass
-                # fans a single scan out to every subscriber, and each
-                # span carries that query's qid plus how the bytes were
-                # sourced — so per-query trace sums reconcile with stats()
-                stream.emit_stage(tel, st, "compute_ms", "serve.program",
-                                  t0, t1, "device",
-                                  {"part": pid, "src": src})
             # every subscriber's partial copied to the host, then ONE
             # event after the last copy: the ring waits on it before the
             # fold reads any of them
@@ -747,16 +763,13 @@ class QueryServer:
             for i, partial in partials.value.items():
                 if i in dead:
                     continue
-                st = items[i].stats
-                t0 = time.perf_counter()
                 try:
-                    accs[i] = items[i].fold(accs[i], partial)
+                    with stream.stage(items[i].stats, "merge_ms",
+                                      "serve.fold", "main", {"part": pid}):
+                        accs[i] = items[i].fold(accs[i], partial)
                 except Exception as exc:  # noqa: BLE001 - isolate
                     reap(i, exc)
                     continue
-                stream.emit_stage(tel, st, "merge_ms", "serve.fold",
-                                  t0, time.perf_counter(), "main",
-                                  {"part": pid})
             return accs
 
         try:
@@ -869,6 +882,9 @@ class QueryServer:
         if ticket.done.is_set():
             return  # cancel()/result(timeout) raced the drain: first wins
         now = time.perf_counter()
+        if stats is not None:
+            stats["queue_ms"] = round(ticket.queue_ms, 3)
+            stats["prep_ms"] = round(ticket.prep_ms, 3)
         ticket.result = result
         ticket.error = error
         ticket.stats = stats
@@ -893,6 +909,8 @@ class QueryServer:
     # -- observability / lifecycle -----------------------------------------
 
     def stats(self) -> Dict[str, object]:
+        """Counters since the server started; ``p50_ms`` / ``p99_ms`` /
+        ``mean_ms`` over the last ``LATENCY_HISTORY`` completions."""
         with self._stats_lock:
             lats = np.asarray(self._latencies_ms, dtype=np.float64)
             completed = self._completed

@@ -38,9 +38,10 @@ results are bit-identical at every depth. Stage wall times are recorded
 per run (``StreamStats``): ``h2d_ms`` / ``compute_ms`` / ``merge_ms`` are
 MAIN-thread wall time spent waiting on transfers, dispatching + waiting
 on device programs, and folding partials respectively — a fully hidden
-transfer shows up as ``h2d_ms ~ 0``. With tracing enabled
-(``REPRO_TRACE``, DESIGN.md §14) every stage interval is ALSO recorded
-as a telemetry span from the same timestamp pair.
+transfer shows up as ``h2d_ms ~ 0``. Each stage is a ``stage`` block:
+while telemetry records (``REPRO_TRACE`` or a running profiler, DESIGN.md
+§14) it is ALSO a span from the same timestamp pair, open in the
+profiler's trace while the stage runs.
 
 Fault tolerance (DESIGN.md §15): both drivers probe the fault-injection
 harness (``faults.maybe_inject``) at their three per-partition stages,
@@ -108,22 +109,20 @@ class StreamStats:
 _EMPTY: dict = {}
 
 
-def emit_stage(tel, stats: StreamStats, field: Optional[str], name: str,
-               t0: float, t1: float, track: str = "main",
-               attrs: dict = _EMPTY) -> None:
-    """Fold one stage interval into ``stats`` AND record it as a span.
+def stage(stats: StreamStats, field: Optional[str], name: str,
+          track: str = "main", attrs: dict = _EMPTY):
+    """A block timed into ``stats.<field>`` that is also the span ``name``
+    while telemetry records (``telemetry.timed``, tagged ``stats.qid``).
 
     The ``StreamStats`` a run reports and the spans in its trace come from
     the SAME timestamp pairs, so ``explain_analyze`` / bench JSONs and the
-    Chrome trace reconcile by construction. ``tel`` is the resolved
-    registry or None (tracing disabled — only the stats add happens);
-    ``field=None`` records a span with no stats counterpart (the device
-    track's dispatch->retire window, already counted via its halves).
+    Chrome trace reconcile by construction. ``field=None`` times a span
+    with no stats counterpart (the worker thread's ``transfer``). A stage
+    that raises adds nothing to ``stats`` and is recorded with its
+    ``error``.
     """
-    if field is not None:
-        setattr(stats, field, getattr(stats, field) + (t1 - t0) * 1e3)
-    if tel is not None:
-        tel.record(name, t0, t1 - t0, track, qid=stats.qid, **attrs)
+    return telemetry.timed(name, track, stats, field, qid=stats.qid,
+                           **attrs)
 
 
 def clamp_depth(depth: int, max_part_nbytes: int,
@@ -263,19 +262,18 @@ def pipelined_fold(items: Sequence, transfer: Callable, compute: Callable,
     depth 0); any terminal error cancels the queued ring futures before
     propagating, so no transfer outlives the call.
     """
-    tel = telemetry.registry() if telemetry.enabled() else None
     pos, acc = 0, init
     while True:
         try:
             return _fold_pipeline(items, pos, acc, transfer, compute, fold,
-                                  depth, stats, nbytes_of, label_of, tel)
+                                  depth, stats, nbytes_of, label_of)
         except _Restart as r:
             depth = _degrade(depth, r.cause, stats)
             pos, acc = r.pos, r.acc
 
 
 def _fold_pipeline(items, start, acc, transfer, compute, fold, depth,
-                   stats, nbytes_of, label_of, tel):
+                   stats, nbytes_of, label_of):
     """One pass of ``pipelined_fold`` from position ``start``; raises
     ``_Restart`` on a recoverable DeviceOOMError."""
 
@@ -283,7 +281,7 @@ def _fold_pipeline(items, start, acc, transfer, compute, fold, depth,
         return label_of(items[i]) if label_of is not None else i
 
     def attr(item):
-        if tel is None or label_of is None:
+        if label_of is None or not telemetry.enabled():
             return _EMPTY
         return {"part": label_of(item)}
 
@@ -296,23 +294,17 @@ def _fold_pipeline(items, start, acc, transfer, compute, fold, depth,
             while i < len(items):
                 item = items[i]
                 a = attr(item)
-                t0 = time.perf_counter()
-                cols = xfer(i)
-                _block(cols)
-                t1 = time.perf_counter()
-                emit_stage(tel, stats, "h2d_ms", "transfer", t0, t1,
-                           "transfer", a)
-                faults.maybe_inject("compute", part_of(i))
-                partial = compute(item, cols)
-                del cols  # the program holds what it still reads
-                _block(partial)
-                t2 = time.perf_counter()
-                emit_stage(tel, stats, "compute_ms", "program", t1, t2,
-                           "device", a)
-                faults.maybe_inject("fold", part_of(i))
-                acc = fold(acc, item, partial)
-                t3 = time.perf_counter()
-                emit_stage(tel, stats, "merge_ms", "fold", t2, t3, "main", a)
+                with stage(stats, "h2d_ms", "transfer", "transfer", a):
+                    cols = xfer(i)
+                    _block(cols)
+                with stage(stats, "compute_ms", "program", "device", a):
+                    faults.maybe_inject("compute", part_of(i))
+                    partial = compute(item, cols)
+                    del cols  # the program holds what it still reads
+                    _block(partial)
+                with stage(stats, "merge_ms", "fold", "main", a):
+                    faults.maybe_inject("fold", part_of(i))
+                    acc = fold(acc, item, partial)
                 stats.transferred += 1
                 stats.executed += 1
                 if nbytes_of is not None:
@@ -333,13 +325,8 @@ def _fold_pipeline(items, start, acc, transfer, compute, fold, depth,
     def do_transfer(i):
         # runs on the worker thread; the span is the copy-issue window
         # there, rendered on the transfer track
-        if tel is None:
+        with stage(stats, None, "transfer", "transfer", attr(items[i])):
             return xfer(i)
-        t0 = time.perf_counter()
-        cols = xfer(i)
-        tel.record("transfer", t0, time.perf_counter() - t0, "transfer",
-                   qid=stats.qid, **attr(items[i]))
-        return cols
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         try:
@@ -363,18 +350,13 @@ def _fold_pipeline(items, start, acc, transfer, compute, fold, depth,
             def dispatch_head():
                 i, item, fut = ring.popleft()
                 a = attr(item)
-                t0 = time.perf_counter()
-                cols = fut.result()  # ~0 when the copy hid behind compute
-                t1 = time.perf_counter()
-                emit_stage(tel, stats, "h2d_ms", "h2d_wait", t0, t1,
-                           "main", a)
-                faults.maybe_inject("compute", part_of(i))
-                partial = compute(item, cols)
-                t2 = time.perf_counter()
-                emit_stage(tel, stats, "compute_ms", "dispatch", t1, t2,
-                           "main", a)
+                with stage(stats, "h2d_ms", "h2d_wait", "main", a):
+                    cols = fut.result()  # ~0 when the copy hid behind compute
+                with stage(stats, "compute_ms", "dispatch", "main", a) as d:
+                    faults.maybe_inject("compute", part_of(i))
+                    partial = compute(item, cols)
                 stats.executed += 1
-                return i, item, partial, t2
+                return i, item, partial, d.t1
 
             top_up()
             if ring:
@@ -383,24 +365,18 @@ def _fold_pipeline(items, start, acc, transfer, compute, fold, depth,
                 i, item, partial, t_disp = pending
                 head = i  # acc covers items[start:i]
                 a = attr(item)
-                t0 = time.perf_counter()
-                _block(partial)  # the device is the gate
-                t1 = time.perf_counter()
-                emit_stage(tel, stats, "compute_ms", "block", t0, t1,
-                           "main", a)
+                with stage(stats, "compute_ms", "block", "main", a) as b:
+                    _block(partial)  # the device is the gate
                 # the program's dispatch->retire window on the device
                 # track; its halves already fed compute_ms, no stats field
-                emit_stage(tel, stats, None, "program", t_disp, t1,
-                           "device", a)
+                telemetry.interval("program", t_disp, b.t1, "device",
+                                   qid=stats.qid, **a)
                 # program ``i`` retired: launch ``i+1`` BEFORE folding
                 # ``i`` so the fold runs under the next program
                 pending = dispatch_head() if ring else None
-                t1 = time.perf_counter()
-                faults.maybe_inject("fold", part_of(i))
-                acc = fold(acc, item, partial)
-                t2 = time.perf_counter()
-                emit_stage(tel, stats, "merge_ms", "fold", t1, t2,
-                           "main", a)
+                with stage(stats, "merge_ms", "fold", "main", a):
+                    faults.maybe_inject("fold", part_of(i))
+                    acc = fold(acc, item, partial)
                 head = i + 1
                 if nbytes_of is not None:
                     inflight -= nbytes_of(item)
@@ -456,7 +432,6 @@ def pipelined_ranked_fold(items: Sequence, transfer: Callable,
     partition (per-item decisions re-checked — the bound only tightens,
     so nothing skipped un-skips), and ring cleanup on terminal errors.
     """
-    tel = telemetry.registry() if telemetry.enabled() else None
     # per-position outcome ("issue"/"head" prune, "exec"), overwritten on
     # a degraded re-run so skip/waste counts never double-count an item
     decisions: Dict[int, str] = {}
@@ -465,7 +440,7 @@ def pipelined_ranked_fold(items: Sequence, transfer: Callable,
         try:
             state = _ranked_pipeline(items, pos, state, transfer, compute,
                                      fold, prune, depth, stats, nbytes_of,
-                                     label_of, tel, decisions)
+                                     label_of, decisions)
             break
         except _Restart as r:
             depth = _degrade(depth, r.cause, stats)
@@ -476,7 +451,7 @@ def pipelined_ranked_fold(items: Sequence, transfer: Callable,
 
 
 def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
-                     depth, stats, nbytes_of, label_of, tel, decisions):
+                     depth, stats, nbytes_of, label_of, decisions):
     """One pass of ``pipelined_ranked_fold`` from position ``start``;
     raises ``_Restart`` on a recoverable DeviceOOMError."""
 
@@ -484,19 +459,14 @@ def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
         return label_of(items[i]) if label_of is not None else i
 
     def attr(item):
-        if tel is None or label_of is None:
+        if label_of is None or not telemetry.enabled():
             return _EMPTY
         return {"part": label_of(item)}
 
     def do_transfer(i):
-        if tel is None:
+        with stage(stats, None, "transfer", "transfer", attr(items[i])):
             return _transfer_with_retry(transfer, items[i], part_of(i),
                                         stats)
-        t0 = time.perf_counter()
-        cols = _transfer_with_retry(transfer, items[i], part_of(i), stats)
-        tel.record("transfer", t0, time.perf_counter() - t0, "transfer",
-                   qid=stats.qid, **attr(items[i]))
-        return cols
 
     ring: deque = deque()  # (pos, item, future cols): not yet bound-gated
     dropped = []  # futures of head-pruned items, waited for at the end
@@ -511,10 +481,10 @@ def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
                     idx += 1
                     if prune(state, item):
                         decisions[i] = "issue"
-                        if tel is not None:
-                            tel.instant("ranked_prune", "main",
-                                        qid=stats.qid, stage="issue",
-                                        **attr(item))
+                        if telemetry.enabled():
+                            telemetry.instant("ranked_prune", "main",
+                                              qid=stats.qid, stage="issue",
+                                              **attr(item))
                         continue
                     # speculative, off-thread: bytes at risk, not results
                     ring.append((i, item, pool.submit(do_transfer, i)))
@@ -531,10 +501,10 @@ def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
                     inflight -= nbytes_of(item)
                 if prune(state, item):  # merges since issue tightened it
                     decisions[i] = "head"
-                    if tel is not None:
-                        tel.instant("ranked_prune", "main", qid=stats.qid,
-                                    stage="head", wasted_transfer=True,
-                                    **attr(item))
+                    if telemetry.enabled():
+                        telemetry.instant("ranked_prune", "main",
+                                          qid=stats.qid, stage="head",
+                                          wasted_transfer=True, **attr(item))
                     # the speculative copy is left to run and waited for
                     # when the pass ends, never cancelled: whether an
                     # un-started one could still be cancelled depends on
@@ -544,22 +514,15 @@ def _ranked_pipeline(items, start, state, transfer, compute, fold, prune,
                     dropped.append(fut)
                     continue
                 a = attr(item)
-                t0 = time.perf_counter()
-                cols = fut.result()
-                t1 = time.perf_counter()
-                emit_stage(tel, stats, "h2d_ms", "h2d_wait", t0, t1,
-                           "main", a)
-                faults.maybe_inject("compute", part_of(i))
-                partial = compute(item, cols)  # gated: pruned never run
-                _block(partial)
-                t2 = time.perf_counter()
-                emit_stage(tel, stats, "compute_ms", "program", t1, t2,
-                           "device", a)
-                faults.maybe_inject("fold", part_of(i))
-                state = fold(state, item, partial)
-                t3 = time.perf_counter()
-                emit_stage(tel, stats, "merge_ms", "fold", t2, t3,
-                           "main", a)
+                with stage(stats, "h2d_ms", "h2d_wait", "main", a):
+                    cols = fut.result()
+                with stage(stats, "compute_ms", "program", "device", a):
+                    faults.maybe_inject("compute", part_of(i))
+                    partial = compute(item, cols)  # gated: pruned never run
+                    _block(partial)
+                with stage(stats, "merge_ms", "fold", "main", a):
+                    faults.maybe_inject("fold", part_of(i))
+                    state = fold(state, item, partial)
                 stats.executed += 1
                 decisions[i] = "exec"
         except DeviceOOMError as exc:

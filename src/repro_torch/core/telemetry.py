@@ -1,17 +1,19 @@
 """Engine-wide telemetry: spans, counters, per-query traces (DESIGN.md §14).
 
-PyTorch port: a verbatim copy of ``repro.core.telemetry`` (pure Python),
-kept separate so ``repro_torch`` never imports the JAX package. The
-partition / stream / serve producers named below arrive with later port
-slices; in this slice ``kernels.dispatch._route`` and ``plan.Query``
-(query ids) are the callers.
+PyTorch port of ``repro.core.telemetry``, kept separate so ``repro_torch``
+never imports the JAX package. The callers are the planner
+(``plan.Query``: query ids, ``plan.join_side``, ``plan.program``), the
+partitioned and streamed executors (``core/partition.py``,
+``core/stream.py``), the server (``core/serve.py``), the kernel router
+(``kernels.dispatch._route``) and the kernel wrappers
+(``kernels._build.count_launch``).
 
 The engine grew three disconnected observability islands — ``StreamStats``
 on the pipelined executor, ``QueryServer.stats()`` on the serving layer,
-and ad-hoc ``trace_count`` / ``device_put``-stub counters in tests and
-benches. This module is the one registry they all fold into, so a single
-trace answers "where did this query's time and bytes go, and why did the
-planner choose that path?" end to end:
+and ad-hoc ``trace_count`` / transfer counters in tests and benches. This
+module is the one registry they all fold into, so a single trace answers
+"where did this query's time and bytes go, and why did the planner choose
+that path?" end to end:
 
   * ``span(name, track=, **attrs)`` — a context manager recording one
     complete event (wall-clock begin + duration) into a bounded ring
@@ -20,13 +22,22 @@ planner choose that path?" end to end:
     a worker thread but renders on the transfer track, and the
     dispatch->retire window of each device program renders on the device
     track (DESIGN.md §12's three overlappable stages, one track each).
+    ``timed(...)`` is the same span, always timed, that also adds its
+    milliseconds to a field (the executor's ``StreamStats``, a ticket's
+    ``prep_ms``), so the stats and the trace come from one timestamp
+    pair. ``interval(...)`` records a window measured elsewhere (one that
+    crosses threads, such as a ticket's ``serve.queue``): ring only.
+
+  * the profiler's trace — while recording, every span also opens a
+    range named ``repro.<name>`` on the thread doing the work, for the
+    span's whole extent, so a running ``torch.profiler`` places it on its
+    own clock among the device's kernels and copies. Recording is on
+    while such a profiler runs, whatever the policy says.
 
   * monotonic counters — ``add_counter`` / ``counter``. The H2D transfer
     counters (``h2d_calls`` / ``h2d_bytes``) are ALWAYS on, enabled or
-    not: they are the single source of truth behind
-    ``benchmarks.common.count_h2d`` and the test-suite transfer fixture
-    (both are thin shims over ``h2d_listener`` now), so the CI-gated
-    transfer metrics and the test assertions cannot diverge.
+    not: ``h2d_listener`` observes the same calls, so the transfer counts
+    a bench and the tests read cannot diverge.
 
   * per-query traces — every span/instant carries the ``qid`` of the
     query that caused it (``telemetry.next_qid`` hands out process-unique
@@ -35,22 +46,23 @@ planner choose that path?" end to end:
     serving layer tags shared-scan spans per subscriber, so co-batched
     queries separate cleanly in one trace.
 
-Enablement & cost: recording is gated on
-``DispatchPolicy.enable_trace`` (env ``REPRO_TRACE``, default off).
-Disabled, ``span()`` returns a shared no-op context manager after one
-policy-field read — no allocation, no lock, no timestamps — and the only
-always-on work is the two integer adds of ``record_h2d`` per PARTITION
-transfer (micro- to milliseconds of device work each). The stream bench
-CI-gates the disabled-path overhead at <2% of end-to-end wall time.
-The ring buffer holds ``DispatchPolicy.trace_buffer_events`` events
-(env ``REPRO_TRACE_BUFFER``); beyond that the OLDEST events drop (the
+Enablement & cost: recording is on while ``DispatchPolicy.enable_trace``
+(env ``REPRO_TRACE``, default off) is set or a ``torch.profiler``
+runs. Off, ``span()`` returns a shared no-op context manager after two
+flag reads — no allocation, no lock, no timestamps — and the always-on
+work is the two integer adds of ``record_h2d`` per PARTITION transfer
+(micro- to milliseconds of device work each) and the clock reads of the
+``timed`` stages. The ring buffer holds
+``DispatchPolicy.trace_buffer_events`` events (env
+``REPRO_TRACE_BUFFER``); beyond that the OLDEST events drop (the
 ``dropped_events`` counter says how many), so tracing a long-running
 server is bounded-memory by construction.
 
 Export: ``export_chrome_trace(path)`` writes the buffer in the Chrome
 trace-event JSON format (load in ``chrome://tracing`` / Perfetto): one
 process, one row per track, spans as complete ("X") events with their
-attrs inspectable per event.
+attrs inspectable per event, timestamps in Unix-epoch microseconds (the
+profiler's clock), so it overlays a ``torch.profiler`` trace of the run.
 """
 from __future__ import annotations
 
@@ -59,7 +71,19 @@ import itertools
 import json
 import threading
 import time
+from collections import deque
 from typing import Callable, Dict, List, Optional
+
+from torch.autograd import profiler as _torch_profiler
+
+try:
+    # a FUNCTION-scope range: a CPU op in the profiler's trace. A
+    # ``record_function`` range is a user annotation, which the profiler
+    # also copies onto the device's timeline over the kernels it launched,
+    # where it would read as device time.
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:  # spans then stay out of the profiler's trace
+    _Range = None
 
 # Logical stage tracks (chrome-trace rows), in render order. Spans may
 # name other tracks; they get rows after these. ``fault`` carries the
@@ -75,14 +99,24 @@ def _policy():
     # lazy: kernels.dispatch imports this module's recorders; importing it
     # back at module level would cycle the layering
     from repro_torch.kernels import dispatch
-
     return dispatch.policy()
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process.
+
+    Read from the module flag torch keeps for such fast checks; every
+    profiler sets it, one that profiles all threads included (where
+    ``torch.autograd._profiler_enabled()`` reads False on other threads).
+    False where this torch has no such flag."""
+    return getattr(_torch_profiler, "_is_profiler_enabled", False)
+
+
 def enabled() -> bool:
-    """Live policy read: ``dispatch.overrides(enable_trace=True)`` turns
-    recording on for exactly the extent of the ``with`` block."""
-    return _policy().enable_trace
+    """Live read: recording is on while the policy's ``enable_trace`` is
+    set (``dispatch.overrides(enable_trace=True)`` turns it on for exactly
+    the extent of the ``with`` block) or a profiler runs."""
+    return _policy().enable_trace or profiling()
 
 
 def buffer_limit() -> int:
@@ -90,15 +124,21 @@ def buffer_limit() -> int:
     return lim if lim and lim > 0 else _DEFAULT_BUFFER
 
 
+def _epoch_ns() -> int:
+    """Unix-epoch ns at ``perf_counter``'s zero: what puts the ring's
+    ``perf_counter`` times on the clock of the profiler's events."""
+    return time.time_ns() - time.perf_counter_ns()
+
+
 class Telemetry:
     """Thread-safe span/counter registry with a bounded event ring."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._events: List[dict] = []
+        self._events: deque = deque()
         self._counters: Dict[str, float] = {}
         self.dropped = 0
-        self.epoch = time.perf_counter()  # trace time zero
+        self.epoch_ns = _epoch_ns()
 
     # -- events -------------------------------------------------------------
 
@@ -112,7 +152,8 @@ class Telemetry:
             self._events.append(ev)
             if len(self._events) > limit:
                 drop = len(self._events) - limit
-                del self._events[:drop]
+                for _ in range(drop):
+                    self._events.popleft()
                 self.dropped += drop
                 self._counters["dropped_events"] = self.dropped
 
@@ -152,12 +193,12 @@ class Telemetry:
     # -- lifecycle ----------------------------------------------------------
 
     def reset(self) -> None:
-        """Clear events and counters; re-zero the trace epoch."""
+        """Clear events and counters; re-read the clocks' offset."""
         with self._lock:
             self._events.clear()
             self._counters.clear()
             self.dropped = 0
-            self.epoch = time.perf_counter()
+            self.epoch_ns = _epoch_ns()
 
     # -- export -------------------------------------------------------------
 
@@ -167,12 +208,13 @@ class Telemetry:
         One process ("repro-engine"), one named thread row per track
         (DESIGN.md §12's main / transfer / device stages), spans as
         complete ("X") events and zero-duration events as instants ("i"),
-        timestamps in µs relative to the registry epoch. Loadable in
+        timestamps in Unix-epoch µs, the clock of ``torch.profiler``'s
+        events, so the two traces of one run overlay. Loadable in
         chrome://tracing or https://ui.perfetto.dev.
         """
         with self._lock:
             evs = list(self._events)
-            epoch = self.epoch
+            epoch_us = self.epoch_ns / 1e3
         tracks = list(TRACKS)
         for ev in evs:
             if ev["track"] not in tracks:
@@ -188,7 +230,7 @@ class Telemetry:
         for ev in evs:
             rec = {"name": ev["name"], "pid": 0,
                    "tid": tid_of[ev["track"]],
-                   "ts": (ev["ts"] - epoch) * 1e6,
+                   "ts": epoch_us + ev["ts"] * 1e6,
                    "args": {k: v for k, v in ev["attrs"].items()
                             if v is not None}}
             if ev["dur"] > 0:
@@ -235,22 +277,45 @@ def query_trace(qid: int) -> List[dict]:
 
 
 class _Span:
-    """Recording span: measures wall time between __enter__/__exit__."""
+    """A timed block on the thread doing the work. While recording it
+    holds a profiler range ``repro.<name>`` open for its whole extent and
+    lands in the ring at its end; with ``into`` it adds its milliseconds
+    to ``into.<field>`` whether or not it records. A block that raises
+    adds nothing to the field and is recorded with ``error=<exception
+    type>``."""
 
-    __slots__ = ("name", "track", "attrs", "t0")
+    __slots__ = ("name", "track", "attrs", "into", "field", "rec", "t0",
+                 "t1", "_range")
 
-    def __init__(self, name, track, attrs):
+    def __init__(self, name, track, attrs, into=None, field=None, rec=True):
         self.name = name
         self.track = track
         self.attrs = attrs
+        self.into = into
+        self.field = field
+        self.rec = rec
+        self._range = None
 
     def __enter__(self):
+        if self.rec and _Range is not None:
+            self._range = _Range("repro." + self.name)
+            self._range.__enter__()
         self.t0 = time.perf_counter()
         return self
 
-    def __exit__(self, *exc):
-        _REGISTRY.record(self.name, self.t0, time.perf_counter() - self.t0,
-                         self.track, **self.attrs)
+    def __exit__(self, exc_type, *exc):
+        self.t1 = t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        dur = t1 - self.t0
+        if exc_type is None and self.field is not None:
+            setattr(self.into, self.field,
+                    getattr(self.into, self.field) + dur * 1e3)
+        if self.rec:
+            attrs = self.attrs
+            if exc_type is not None:
+                attrs = dict(attrs, error=exc_type.__name__)
+            _REGISTRY.record(self.name, self.t0, dur, self.track, **attrs)
         return False
 
 
@@ -276,6 +341,21 @@ def span(name: str, track: str = "main", **attrs):
     return _Span(name, track, attrs)
 
 
+def timed(name: str, track: str, into, field: Optional[str], **attrs):
+    """A span that is timed whether or not it records: it adds its ms to
+    ``into.<field>`` (``field=None``: to nothing) and, while recording,
+    is the span ``name``. Its ``t1`` is the clock read at its end."""
+    return _Span(name, track, attrs, into, field, enabled())
+
+
+def interval(name: str, t0: float, t1: float, track: str = "main",
+             **attrs) -> None:
+    """Record the window ``[t0, t1]`` (``perf_counter`` seconds) measured
+    elsewhere, such as one that starts on another thread: ring only."""
+    if enabled():
+        _REGISTRY.record(name, t0, t1 - t0, track, **attrs)
+
+
 def instant(name: str, track: str = "main", **attrs) -> None:
     if enabled():
         _REGISTRY.instant(name, track, **attrs)
@@ -292,9 +372,9 @@ def add_counter(name: str, value: float = 1) -> None:
 # ``partition._put_columns`` (the ONE device_put boundary of the streamed
 # out-of-core path, residency LRU included) reports every transfer here.
 # The counters are always on; listeners let benches/tests observe per-call
-# granularity (bytes, and the host tree that shipped) without stubbing
-# ``device_put`` — benchmarks.common.count_h2d and the tests' transfer
-# fixture are shims over ``h2d_listener``.
+# granularity (bytes, and the host tree that shipped) without stubbing the
+# copy: the benchmark's served deployment and the tests count transfers
+# through ``h2d_listener``.
 
 _h2d_listeners: List[Callable] = []
 
@@ -337,20 +417,29 @@ def h2d_listener(fn: Callable):
 
 
 # ---------------------------------------------------------------------------
-# Kernel-dispatch routing records
+# Kernel-dispatch routing records and kernel launches
 # ---------------------------------------------------------------------------
 
 
 def record_route(primitive: str, path: str, reason: str) -> None:
     """Record one dispatch routing decision (kernels/dispatch.py).
 
-    Routing happens at TRACE time (the decision is host-static and bakes
-    into the jitted program), so these events mark compilations, not
-    per-partition executions: enable tracing before the first ``run()``
-    of a query shape to capture its routing. ``reason`` names the
-    threshold that decided (e.g. ``n=65536>=unpack_min_vals=4096``)."""
+    The port runs eagerly, so the router decides on every call: one
+    record marks one routed call (per partition, per program run), not a
+    compilation. ``reason`` names the threshold that decided (e.g.
+    ``n=65536>=unpack_min_vals=4096``)."""
     if not enabled():
         return
     _REGISTRY.add_counter(f"route.{primitive}.{path}", 1)
     _REGISTRY.instant(f"route.{primitive}", track="main", path=path,
                       reason=reason)
+
+
+def record_kernel(name: str, nbytes: int) -> None:
+    """While recording, a ``kernel`` instant on the device track for one
+    launch of the port's kernel ``name`` (``kernels._build.count_launch``):
+    ``nbytes`` is the least the launch must move, each input read once
+    and each output written once."""
+    if enabled():
+        _REGISTRY.instant("kernel", track="device", kernel=name,
+                          nbytes=nbytes)

@@ -15,9 +15,12 @@ without ``nvcc``.
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
 and nowhere else, and one to ``SHAPES[name][cls]``, a tally by shape
 class: rows, queries and boundaries rounded up to a power of two, G and
-bit widths exact (``pow2``). With ``capture(True)``, each wrapper also
-keeps the inputs of its largest launch (``LARGEST``), so a caller can
-replay the main path's real shapes against the plain versions.
+bit widths exact (``pow2``). It passes the launch's bytes, the least it
+must move (each input read once, each output written once), which
+telemetry records as a ``kernel`` instant while it records. With
+``capture(True)``, each wrapper also keeps the inputs of its largest
+launch (``LARGEST``), so a caller can replay the main path's real shapes
+against the plain versions.
 """
 from __future__ import annotations
 
@@ -70,14 +73,18 @@ def capture(on: bool) -> None:
         LARGEST.clear()
 
 
-def count_launch(name: str, work: int, cls: str, **inputs) -> None:
-    """Book one launch of kernel ``name`` of shape class ``cls`` (called
-    right after the launch)."""
+def count_launch(name: str, work: int, cls: str, nbytes: int,
+                 **inputs) -> None:
+    """Book one launch of kernel ``name`` of shape class ``cls`` that must
+    move ``nbytes`` (called right after the launch)."""
+    # lazy: core.telemetry's package imports the kernels
+    from repro_torch.core import telemetry
     LAUNCHES[name] += 1
     tally = SHAPES[name]
     tally[cls] = tally.get(cls, 0) + 1
     if _CAPTURE and work >= LARGEST.get(name, {}).get("work", -1):
         LARGEST[name] = dict(inputs, work=work)
+    telemetry.record_kernel(name, nbytes)
 
 
 def nvcc_path() -> str:

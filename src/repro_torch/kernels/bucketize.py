@@ -173,6 +173,8 @@ def _launch(name: str, entry, boundaries, queries, right: bool, plan,
         _build.check(lib, err, name, "repro_bucketize_error_string")
     _build.count_launch(name, nb + nq,
                         f"q={_build.pow2(nq)} nb={_build.pow2(nb)}",
+                        boundaries.element_size() * nb
+                        + (queries.element_size() + 4) * nq,
                         boundaries=boundaries, queries=queries,
                         right=bool(right))
     return out

@@ -236,11 +236,13 @@ def overrides(**kw):
 # ---------------------------------------------------------------------------
 
 
-def _route(primitive: str, path: str, reason: str) -> None:
-    if not _POLICY.enable_trace:
-        return
+def _route(primitive: str, path: str, reason) -> None:
+    """Record one routing decision while telemetry records. The router
+    runs on every call, so ``reason()`` builds the text only then."""
+    # lazy: core.telemetry imports this module back
     from repro_torch.core import telemetry
-    telemetry.record_route(primitive, path, reason)
+    if telemetry.enabled():
+        telemetry.record_route(primitive, path, reason())
 
 
 def _kernel_ok(*tensors) -> bool:
@@ -299,10 +301,10 @@ def _unpack(packed) -> torch.Tensor:
     on = pol.kernels_enabled(words)
     if on and n >= pol.unpack_min_vals and words.shape[0] > 0:
         _route("unpack", "kernel",
-               f"n={n}>=unpack_min_vals={pol.unpack_min_vals}")
+               lambda: f"n={n}>=unpack_min_vals={pol.unpack_min_vals}")
         return unpack_kernel(words, packed.bit_width, packed.offset, n)
     _route("unpack", "torch",
-           _off_reason(pol) if not on
+           lambda: _off_reason(pol) if not on
            else f"n={n}<unpack_min_vals={pol.unpack_min_vals}"
            if n < pol.unpack_min_vals else "empty stream")
     return ref_mod.ref_unpack(words, packed.bit_width, packed.offset, n)
@@ -324,7 +326,7 @@ def bucketize(boundaries: torch.Tensor, queries, right: bool = True
                 and words.shape[0] > 0 and boundaries.dtype == torch.int32):
             smem = min(pol.bucketize_max_vmem_boundaries, MAX_SMEM_BOUNDARIES)
             _route("bucketize", "kernel_packed_fused",
-                   f"n_q={n_q}>=bucketize_min_queries="
+                   lambda: f"n_q={n_q}>=bucketize_min_queries="
                    f"{pol.bucketize_min_queries}, n_b={n_b} "
                    + ("fits shared memory" if n_b <= smem else "tiled"))
             return bucketize_packed_kernel(
@@ -339,16 +341,16 @@ def bucketize(boundaries: torch.Tensor, queries, right: bool = True
         b, q = boundaries.contiguous(), queries.contiguous()
         if n_b <= min(pol.bucketize_max_vmem_boundaries, MAX_SMEM_BOUNDARIES):
             _route("bucketize", "kernel",
-                   f"n_q={n_q}>=bucketize_min_queries="
+                   lambda: f"n_q={n_q}>=bucketize_min_queries="
                    f"{pol.bucketize_min_queries}, n_b={n_b} fits shared "
                    "memory")
             return bucketize_kernel(b, q, right)
         _route("bucketize", "count_kernel",
-               f"n_b={n_b}>bucketize_max_vmem_boundaries="
+               lambda: f"n_b={n_b}>bucketize_max_vmem_boundaries="
                f"{min(pol.bucketize_max_vmem_boundaries, MAX_SMEM_BOUNDARIES)}")
         return bucketize_count_kernel(b, q, right)
     _route("bucketize", "torch",
-           _off_reason(pol) if not on
+           lambda: _off_reason(pol) if not on
            else f"n_q={n_q}<bucketize_min_queries={pol.bucketize_min_queries}"
            if n_q < pol.bucketize_min_queries
            else "dtype/empty boundaries")
@@ -369,7 +371,7 @@ def maybe_rle_decode(values, starts, ends, n, nrows: int, fill=0):
     if not (on and nrows >= pol.rle_decode_min_rows and starts.shape[0] > 0
             and starts.dtype == torch.int32 and ends.dtype == torch.int32):
         _route("rle_decode", "torch",
-               _off_reason(pol) if not on
+               lambda: _off_reason(pol) if not on
                else f"nrows={nrows}<rle_decode_min_rows="
                f"{pol.rle_decode_min_rows}"
                if nrows < pol.rle_decode_min_rows else "dtype/empty runs")
@@ -377,15 +379,18 @@ def maybe_rle_decode(values, starts, ends, n, nrows: int, fill=0):
     n = torch.as_tensor(n, dtype=torch.int32, device=starts.device)
     if packed:
         _route("rle_decode", "kernel_packed_fused",
-               f"nrows={nrows}>=rle_decode_min_rows={pol.rle_decode_min_rows}")
+               lambda: f"nrows={nrows}>=rle_decode_min_rows="
+               f"{pol.rle_decode_min_rows}")
         return rle_decode_packed_kernel(
             values.words, values.bit_width, values.offset, starts.shape[0],
             starts.contiguous(), ends.contiguous(), n, nrows, fill)
     if not _kernel_ok(values):
-        _route("rle_decode", "torch", f"value dtype {values.dtype} not routed")
+        _route("rle_decode", "torch",
+               lambda: f"value dtype {values.dtype} not routed")
         return None
     _route("rle_decode", "kernel",
-           f"nrows={nrows}>=rle_decode_min_rows={pol.rle_decode_min_rows}")
+           lambda: f"nrows={nrows}>=rle_decode_min_rows="
+           f"{pol.rle_decode_min_rows}")
     return rle_decode_kernel(values.contiguous(), starts.contiguous(),
                              ends.contiguous(), n, nrows, fill)
 
@@ -406,11 +411,11 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
             and segment_ids.dtype == torch.int32
             and 0 < num_segments <= limit and values.shape[0] > 0):
         _route("segment_sum", "kernel",
-               f"G={num_segments}<=segment_sum_max_groups={limit}")
+               lambda: f"G={num_segments}<=segment_sum_max_groups={limit}")
         return segment_sum_kernel(values.contiguous(),
                                   segment_ids.contiguous(), num_segments)
     _route("segment_sum", "torch_scatter",
-           _off_reason(pol) if not on
+           lambda: _off_reason(pol) if not on
            else f"dtype {values.dtype}/{segment_ids.dtype} not routed"
            if values.dtype not in _KERNEL_DTYPES
            or segment_ids.dtype != torch.int32
@@ -436,11 +441,11 @@ def topk(values: torch.Tensor, k: int):
     if (on and rows >= pol.topk_min_rows and 1 <= k <= k_max
             and _kernel_ok(values)):
         _route("topk", "kernel",
-               f"rows={rows}>=topk_min_rows={pol.topk_min_rows}, "
+               lambda: f"rows={rows}>=topk_min_rows={pol.topk_min_rows}, "
                f"k={k}<=topk_max_k={k_max}")
         return topk_kernel(values.contiguous(), k)
     _route("topk", "torch",
-           _off_reason(pol) if not on
+           lambda: _off_reason(pol) if not on
            else f"rows={rows}<topk_min_rows={pol.topk_min_rows}"
            if rows < pol.topk_min_rows
            else f"k={k} outside kernel range" if not 1 <= k <= k_max

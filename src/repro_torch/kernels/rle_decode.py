@@ -114,6 +114,7 @@ def rle_decode_kernel(values: torch.Tensor, starts: torch.Tensor,
                      "repro_rle_decode_error_string")
     _build.count_launch("rle_decode_kernel", 3 * cap + nrows,
                         f"rows={_build.pow2(nrows)} cap={_build.pow2(cap)}",
+                        4 * (3 * cap + 1 + nrows),  # runs, n, rows
                         values=values, starts=starts, ends=ends, n=n,
                         nrows=nrows, fill=fill)
     return out

@@ -119,8 +119,10 @@ def segment_sum_kernel(values: torch.Tensor, segment_ids: torch.Tensor,
     if err:
         _build.check(lib, err, "segment_sum_kernel",
                      "repro_segment_sum_error_string")
+    es = values.element_size()
     _build.count_launch("segment_sum_kernel", n,
                         f"{str(values.dtype)[6:]} rows={_build.pow2(n)} G={g}",
+                        (es + 4) * n + es * g,
                         values=values, segment_ids=segment_ids,
                         num_segments=g)
     return out

@@ -158,7 +158,12 @@ def topk_kernel(values: torch.Tensor, k: int,
                             k_pow2, code, out_v.data_ptr(), out_i.data_ptr())
         if err:
             _build.check(lib, err, "topk_kernel", "repro_topk_error_string")
+        # bytes: the pass reads its rows (with their indices after the
+        # first pass) and writes k_pow2 values and indices a block
+        es = values.element_size()
         _build.count_launch("topk_kernel", values.shape[0], cls,
+                            launch.rows * (es + (0 if cur_i is None else 4))
+                            + launch.grid * k_pow2 * (es + 4),
                             values=values, k=k)
         cur_v, cur_i = out_v, out_i
     return cur_v[:k], cur_i[:k]

@@ -127,6 +127,7 @@ def unpack_kernel(words: torch.Tensor, bit_width: int, offset,
         _build.check(lib, err, "unpack_kernel", "repro_unpack_error_string")
     _build.count_launch("unpack_kernel", nvals,
                         f"n={_build.pow2(nvals)} bits={int(bit_width)}",
+                        4 * (nwords_for(nvals, bit_width) + nvals),
                         words=words, bit_width=int(bit_width),
                         offset=int(offset), nvals=nvals)
     return out
@@ -180,6 +181,7 @@ def bucketize_packed_kernel(boundaries: torch.Tensor, words: torch.Tensor,
     _build.count_launch("bucketize_packed_kernel", nb + nvals,
                         f"q={_build.pow2(nvals)} nb={_build.pow2(nb)} "
                         f"bits={int(bit_width)}",
+                        4 * (nb + nwords_for(nvals, bit_width) + nvals),
                         boundaries=boundaries, words=words,
                         bit_width=int(bit_width), offset=int(offset),
                         nvals=nvals, right=bool(right))
@@ -229,6 +231,8 @@ def rle_decode_packed_kernel(words: torch.Tensor, bit_width: int, offset,
     _build.count_launch("rle_decode_packed_kernel", 3 * cap + nrows,
                         f"rows={_build.pow2(nrows)} cap={_build.pow2(cap)} "
                         f"bits={int(bit_width)}",
+                        # packed run values, starts, ends, n, rows
+                        4 * (nwords_for(cap, bit_width) + 2 * cap + 1 + nrows),
                         words=words, bit_width=int(bit_width),
                         offset=int(offset), cap=cap, starts=starts, ends=ends,
                         n=n, nrows=nrows, fill=fill)

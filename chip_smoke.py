@@ -92,7 +92,8 @@ first error:
    Q6, Q17, Q3, Q3r and R1 (row terminal: the solo path). Each shape is
    first run alone (``PartitionedQuery.run()``, depth 2) and checked
    against its numpy oracle on this table's arrays. Server A holds the
-   whole table (``budget_bytes=nbytes()``, ``max_batch=8``, drain
+   whole table (``budget_bytes=nbytes()`` plus the CUDA graphs' input
+   slot, which the budget includes; ``max_batch=8``, drain
    thread): four client threads submit the mix in seeded orders, a cold
    round and a warm round; the warm round must hit the plan cache on
    every submission and move no H2D byte (``telemetry.h2d_listener``).
@@ -2884,7 +2885,8 @@ def _served_round(srv, make, plan, label, solo, want):
 def serving_phase(dev, shared, seed, card):
     """The query server over the Q1-ordered packed partitions that the
     ordering phase streamed R1 over, ORDERS resident. Server A holds the
-    whole table (``budget_bytes=nbytes()``, ``max_batch=8``):
+    whole table (``budget_bytes=nbytes()`` plus the CUDA graphs' input
+    slot, which the budget includes; ``max_batch=8``):
     ``SERVE_CLIENTS`` threads submit the mix twice in seeded orders, a
     cold round and a warm one that must hit the plan cache on every
     submission and move no H2D byte. Server B holds a third of the table:
@@ -2893,6 +2895,7 @@ def serving_phase(dev, shared, seed, card):
     either server starts) and matches its numpy oracle. Launch counts are
     zeroed after the solo runs, just before server A; the caller reads
     them after this returns the records."""
+    from repro_torch.core.graphs import ProgramGraphs
     from repro_torch.core.serve import QueryServer
     from repro_torch.kernels import _build, dispatch
 
@@ -2920,7 +2923,8 @@ def serving_phase(dev, shared, seed, card):
                       "oracle": "ok", "card": card}), flush=True)
     rng = np.random.default_rng(seed)
     records = []
-    with QueryServer(pt, budget_bytes=pt.nbytes(), max_batch=8) as srv:
+    whole = pt.nbytes() + ProgramGraphs(pt, dev).slot_nbytes
+    with QueryServer(pt, budget_bytes=whole, max_batch=8) as srv:
         for label in ("A_cold", "A_warm"):
             plan = [[SERVE_MIX[i] for i in rng.permutation(len(SERVE_MIX))]
                     for _ in range(SERVE_CLIENTS)]

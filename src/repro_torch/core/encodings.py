@@ -58,8 +58,7 @@ def take_fill(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     if size == 0:
         return torch.full(idx.shape, fill, dtype=x.dtype, device=x.device)
     vals = x[idx.clamp(0, size - 1)]
-    return torch.where(ok, vals, torch.tensor(fill, dtype=x.dtype,
-                                              device=x.device))
+    return torch.where(ok, vals, fill_scalar(fill, x.dtype))
 
 
 def scatter_drop(out: torch.Tensor, idx: torch.Tensor, src,
@@ -71,8 +70,13 @@ def scatter_drop(out: torch.Tensor, idx: torch.Tensor, src,
     add / amin / amax."""
     size = out.shape[0]
     idx = drop_slots(_normalized(idx, size), size)
-    src = torch.as_tensor(src, dtype=out.dtype, device=out.device)
-    src = src.expand(idx.shape) if src.dim() == 0 else src.to(out.dtype)
+    if not isinstance(src, torch.Tensor):  # a fill kernel, not a host copy
+        src = torch.full(idx.shape, fill_scalar(src, out.dtype),
+                         dtype=out.dtype, device=out.device)
+    elif src.dim() == 0:
+        src = src.to(out.dtype).expand(idx.shape)
+    else:
+        src = src.to(out.dtype)
     ext = torch.cat([out, out.new_zeros((SPARE_SLOTS,))])
     if how == "set":
         ext.scatter_(0, idx, src)
@@ -98,9 +102,12 @@ def is_integer(dtype: torch.dtype) -> bool:
         and dtype != torch.bool
 
 
-def fill_scalar(fill, dtype: torch.dtype, device) -> torch.Tensor:
-    """``jnp.asarray(fill, dtype)`` as a 0-d tensor."""
-    return torch.tensor(fill).to(dtype).to(device)
+def fill_scalar(fill, dtype: torch.dtype):
+    """``jnp.asarray(fill, dtype)`` as a Python scalar, cast on the host.
+    An operator takes it as an operand, so no device tensor is built from
+    a host value: no copy to the device, nothing a CUDA graph cannot
+    hold."""
+    return torch.tensor(fill).to(dtype).item()
 
 
 # ---------------------------------------------------------------------------
@@ -324,15 +331,21 @@ def map_tensors(fn, tree):
     return tree
 
 
-def tensor_leaves(tree) -> list:
-    """Every tensor of ``tree`` (see ``map_tensors``), in field order."""
-    out = []
-
-    def keep(t):
-        out.append(t)
-        return t
-
-    map_tensors(keep, tree)
+def tensor_leaves(tree, out: Optional[list] = None) -> list:
+    """Every tensor of ``tree`` (see ``map_tensors``), in field order,
+    appended to ``out``; the walk rebuilds nothing."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            tensor_leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            tensor_leaves(v, out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            tensor_leaves(getattr(tree, f.name), out)
     return out
 
 
@@ -432,8 +445,7 @@ def valid_slots(n: torch.Tensor, capacity: int) -> torch.Tensor:
 
 def pad_positions(pos: torch.Tensor, n: torch.Tensor, nrows: int) -> torch.Tensor:
     """Force sentinel on invalid tail slots (restores sorted invariant)."""
-    return torch.where(valid_slots(n, pos.shape[0]), pos,
-                       torch.tensor(nrows, dtype=pos.dtype, device=pos.device))
+    return torch.where(valid_slots(n, pos.shape[0]), pos, nrows)
 
 
 def with_capacity_1d(x: torch.Tensor, cap: int, fill) -> torch.Tensor:
@@ -476,14 +488,13 @@ def decode_rle_values(col: RLEColumn, fill=0) -> torch.Tensor:
         return routed
     vals = unpack_values(col.values)
     if col.capacity == 0:
-        return torch.full((col.nrows,), fill_scalar(fill, vals.dtype, "cpu")
-                          .item(), dtype=vals.dtype, device=vals.device)
+        return torch.full((col.nrows,), fill_scalar(fill, vals.dtype),
+                          dtype=vals.dtype, device=vals.device)
     run_raw = _run_id_per_row(starts, col.n, col.nrows)
     run = torch.clamp(run_raw, 0, col.capacity - 1)
     rows = torch.arange(col.nrows, dtype=POS_DTYPE, device=vals.device)
     cov = (run_raw >= 0) & (rows <= ends[run]) & (run_raw < col.n)
-    return torch.where(cov, vals[run], fill_scalar(fill, vals.dtype,
-                                                   vals.device))
+    return torch.where(cov, vals[run], fill_scalar(fill, vals.dtype))
 
 
 def decode_rle_coverage(starts, ends, n, nrows: int) -> torch.Tensor:
@@ -500,7 +511,7 @@ def decode_rle_coverage(starts, ends, n, nrows: int) -> torch.Tensor:
 
 def decode_index_values(col: IndexColumn, fill=0) -> torch.Tensor:
     vals = unpack_values(col.values)
-    out = torch.full((col.nrows,), fill_scalar(fill, vals.dtype, "cpu").item(),
+    out = torch.full((col.nrows,), fill_scalar(fill, vals.dtype),
                      dtype=vals.dtype, device=vals.device)
     return scatter_drop(out, unpack_values(col.positions), vals, "set")
 
@@ -544,8 +555,7 @@ def decode_column(c, fill=0) -> torch.Tensor:
                                       c.nrows)
         idx_cov = decode_index_coverage(c.idx.positions, c.idx.n, c.nrows)
         idx_vals = decode_index_values(c.idx, 0)
-        out = torch.where(rle_cov, rle_vals,
-                          fill_scalar(fill, rle_vals.dtype, rle_vals.device))
+        out = torch.where(rle_cov, rle_vals, fill_scalar(fill, rle_vals.dtype))
         return torch.where(idx_cov, idx_vals.to(out.dtype), out)
     raise TypeError(f"not a data column: {type(c)}")
 

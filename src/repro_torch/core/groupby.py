@@ -242,7 +242,7 @@ def aggregate(view: SegmentView, gid: torch.Tensor, specs, num_groups_cap: int):
     out = {}
     lengths = view.lengths
     f32 = torch.float32
-    inf = torch.tensor(float("inf"), dtype=f32, device=lengths.device)
+    inf = float("inf")
     for out_name, agg, col_name in specs:
         if agg == "count":
             out[out_name] = _segsum(lengths.to(torch.int32), gid, num_groups_cap)
@@ -323,8 +323,8 @@ def groupby_aggregate(
         gid_row = torch.where(cov, gid[seg_c],
                               torch.full_like(seg_c, num_groups_cap))
         f32 = torch.float32
-        zero = torch.zeros((), dtype=f32, device=cov.device)
-        inf = torch.tensor(float("inf"), dtype=f32, device=cov.device)
+        zero = 0.0
+        inf = float("inf")
         counts = None
         for o, a, c in specs:
             if c is None or c in view.values:

@@ -56,7 +56,7 @@ def join_entries(col) -> JoinEntries:
             keys=col.decode(),
             row_start=torch.arange(nr, dtype=POS_DTYPE, device=dev),
             length=torch.ones((nr,), dtype=POS_DTYPE, device=dev),
-            n=torch.tensor(nr, dtype=torch.int32, device=dev),
+            n=torch.full((), nr, dtype=torch.int32, device=dev),
         )
     if isinstance(col, RLEColumn):
         return JoinEntries(keys=unpack_values(col.values),
@@ -185,7 +185,7 @@ def pk_fk_join(fact_key_col, dim_keys: torch.Tensor, n_dim: torch.Tensor,
         return slot_c, hit
 
     def gathered_values(p, slot, hit):
-        return torch.where(hit, p[slot], fill_scalar(fill, p.dtype, p.device))
+        return torch.where(hit, p[slot], fill_scalar(fill, p.dtype))
 
     if isinstance(fact_key_col, PlainColumn):
         slot, hit = probe(fact_key_col.decode(), None)
@@ -267,6 +267,5 @@ def sorted_unique_keys(values: torch.Tensor, valid: torch.Tensor, cap: int):
 
 
 def _big_for(dtype, device):
-    if is_integer(dtype):
-        return torch.tensor(torch.iinfo(dtype).max, dtype=dtype, device=device)
-    return torch.tensor(float("inf"), dtype=dtype, device=device)
+    big = torch.iinfo(dtype).max if is_integer(dtype) else float("inf")
+    return torch.full((), big, dtype=dtype, device=device)

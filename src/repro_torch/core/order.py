@@ -95,7 +95,7 @@ class RankedTable:
 
 
 def _i32(value: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.int32, device=like.device)
+    return torch.full((), value, dtype=torch.int32, device=like.device)
 
 
 # ---------------------------------------------------------------------------

@@ -608,9 +608,9 @@ class Query:
                         # COUNT(*) is the mask's cardinality (run lengths for
                         # RLE — paper §7.2)
                         card = (_mask_cardinality(mask) if mask is not None
-                                else torch.tensor(table.nrows,
-                                                  dtype=torch.int32,
-                                                  device=table.device))
+                                else torch.full((), table.nrows,
+                                                dtype=torch.int32,
+                                                device=table.device))
                         for o, _, _ in cnt_specs:
                             out[o] = card.reshape(1)
                     return {k: v[0] for k, v in out.items()}
@@ -793,8 +793,8 @@ class Query:
                 arr = np.concatenate(
                     [keys, np.full((1,), _sentinel_for(keys.dtype), keys.dtype)])
                 prepared.append((torch.from_numpy(arr).to(dev),
-                                 torch.tensor(len(keys), dtype=torch.int32,
-                                              device=dev)))
+                                 torch.full((), len(keys), dtype=torch.int32,
+                                            device=dev)))
             elif isinstance(op, _JoinOp):
                 with telemetry.span("plan.join_side", qid=self.qid):
                     prepared.append(self._prepare_join_side(op))
@@ -868,7 +868,7 @@ class Query:
                  for c, v in payloads.items()}
         dev = self.table.device
         return (torch.from_numpy(keys_p).to(dev),
-                torch.tensor(n, dtype=torch.int32, device=dev),
+                torch.full((), n, dtype=torch.int32, device=dev),
                 {c: torch.from_numpy(v.astype(canonical_dtype(v.dtype),
                                               copy=False)).to(dev)
                  for c, v in pay_p.items()})
@@ -1092,8 +1092,7 @@ def pk_fk_gather(fact_key_col, dim_keys_sorted: torch.Tensor,
         slot_c = torch.clamp(slot, max=dim_keys_sorted.shape[0] - 1)
         hit = dim_keys_sorted[slot_c] == unpack_values(keys)
         vals = dim_payload[slot_c]
-        return torch.where(hit, vals, fill_scalar(fill, vals.dtype,
-                                                  vals.device))
+        return torch.where(hit, vals, fill_scalar(fill, vals.dtype))
 
     if isinstance(fact_key_col, PlainColumn):
         return PlainColumn(values=lookup(fact_key_col.decode()),

@@ -23,6 +23,7 @@ from repro_torch.core.encodings import (
     POS_DTYPE,
     RLEMask,
     cumsum,
+    fill_scalar,
     is_integer,
     pad_positions,
     scatter_drop,
@@ -103,8 +104,7 @@ def unique_with_inverse(values: torch.Tensor, valid: torch.Tensor,
     # sentinel = own-dtype max (int8-centered group keys exist: paper §3.2)
     big = (torch.iinfo(values.dtype).max if is_integer(values.dtype)
            else float("inf"))
-    key = torch.where(valid, values, torch.tensor(big, dtype=values.dtype,
-                                                  device=values.device))
+    key = torch.where(valid, values, fill_scalar(big, values.dtype))
     order = torch.argsort(key, stable=True)
     sv = key[order]
     valid_sorted = valid[order]
@@ -125,9 +125,7 @@ def unique_bounded(values: torch.Tensor, valid: torch.Tensor, domain_size: int,
     num_groups); group ids ascend with the value, as in
     ``unique_with_inverse``."""
     cap_groups = domain_size if cap_groups is None else cap_groups
-    v = torch.where(valid, _i32(values),
-                    torch.tensor(domain_size, dtype=torch.int32,
-                                 device=values.device))
+    v = torch.where(valid, _i32(values), domain_size)
     counts = scatter_drop(_full(domain_size, 0, torch.int32, v), v, 1, "add")
     present = counts > 0
     rank = (cumsum(present) - 1).to(POS_DTYPE)
@@ -146,14 +144,10 @@ def rank_select_bounded(codes: torch.Tensor, lengths: torch.Tensor,
     total)``: ``take[i]`` rows of entry ``i`` belong to the top-``limit``,
     ``total = min(limit, live rows)``."""
     lens = _i32(torch.where(valid, lengths, torch.zeros_like(lengths)))
-    v = torch.where(valid & (lens > 0), _i32(codes),
-                    torch.tensor(domain_size, dtype=torch.int32,
-                                 device=codes.device))
+    v = torch.where(valid & (lens > 0), _i32(codes), domain_size)
     hist = scatter_drop(_full(domain_size, 0, torch.int32, v), v, lens, "add")
     csum = cumsum(hist)  # inclusive: rows with code <= c
-    total = torch.minimum(torch.tensor(limit, dtype=torch.int32,
-                                       device=csum.device),
-                          csum[domain_size - 1])
+    total = torch.clamp(csum[domain_size - 1], max=limit)
     cstar = torch.searchsorted(csum, total.reshape(1), right=False,
                                out_int32=True)[0]
     excl = csum - hist  # rows with code < c
@@ -191,9 +185,8 @@ def range_intersect(s1, e1, n1, s2, e2, n2, nrows: int, cap_out: int):
                                                    cap_out)
     s = torch.maximum(take_clamped(s1, idx1), take_clamped(s2, idx2))
     e = torch.minimum(take_clamped(e1, idx1), take_clamped(e2, idx2))
-    sentinel = torch.tensor(nrows, dtype=POS_DTYPE, device=s.device)
-    s = torch.where(valid, s, sentinel)
-    e = torch.where(valid, e, sentinel)
+    s = torch.where(valid, s, nrows)
+    e = torch.where(valid, e, nrows)
     idx1 = torch.where(valid, idx1, torch.zeros_like(idx1))
     idx2 = torch.where(valid, idx2, torch.zeros_like(idx2))
     return s, e, idx1, idx2, n_out
@@ -224,8 +217,7 @@ def range_intersect_multi(lists: Sequence[tuple], nrows: int, cap_out: int):
     pos = torch.cat([e + 1 for _, e, _ in lists]
                     + [s for s, _, _ in lists]).to(POS_DTYPE)
     delta = torch.cat([-_i32(v) for v in valids] + [_i32(v) for v in valids])
-    pos = torch.where(delta == 0, torch.tensor(nrows + 1, dtype=POS_DTYPE,
-                                               device=like.device), pos)
+    pos = torch.where(delta == 0, nrows + 1, pos)
     order = torch.argsort(pos, stable=True)
     pos_s, delta_s = pos[order], delta[order]
     cov = cumsum(delta_s)
@@ -236,9 +228,8 @@ def range_intersect_multi(lists: Sequence[tuple], nrows: int, cap_out: int):
     (starts_out,), n_out = compact(start_flag, (pos_s,), cap_out, (nrows,))
     (ends_out,), _ = compact(end_flag, (pos_s - 1,), cap_out, (nrows,))
     valid = valid_slots(n_out, cap_out)
-    sentinel = torch.tensor(nrows, dtype=POS_DTYPE, device=like.device)
-    s_out = torch.where(valid, starts_out, sentinel).to(POS_DTYPE)
-    e_out = torch.where(valid, ends_out, sentinel).to(POS_DTYPE)
+    s_out = torch.where(valid, starts_out, nrows).to(POS_DTYPE)
+    e_out = torch.where(valid, ends_out, nrows).to(POS_DTYPE)
     idxs = []
     for (s_j, _, n_j), cap_j in zip(lists, caps):
         sp = pad_positions(s_j, n_j, nrows)
@@ -263,8 +254,7 @@ def range_union(s1, e1, n1, s2, e2, n2, nrows: int, cap_out: int):
     v1, v2 = valid_slots(n1, cap1), valid_slots(n2, cap2)
     pos = torch.cat([s1, s2, e1 + 1, e2 + 1]).to(torch.int32)
     delta = torch.cat([_i32(v1), _i32(v2), -_i32(v1), -_i32(v2)])
-    pos = torch.where(delta == 0, torch.tensor(nrows + 1, dtype=torch.int32,
-                                               device=pos.device), pos)
+    pos = torch.where(delta == 0, nrows + 1, pos)
     order = torch.argsort(pos, stable=True)
     pos_s, delta_s = pos[order], delta[order]
     cov = cumsum(delta_s)
@@ -275,10 +265,9 @@ def range_union(s1, e1, n1, s2, e2, n2, nrows: int, cap_out: int):
     (starts_out,), n_a = compact(start_flag, (pos_s,), cap_out, (nrows,))
     (ends_out,), _ = compact(end_flag, (pos_s - 1,), cap_out, (nrows,))
     n_out = n_a
-    sentinel = torch.tensor(nrows, dtype=POS_DTYPE, device=pos.device)
     valid = valid_slots(n_out, cap_out)
-    starts_out = torch.where(valid, starts_out, sentinel).to(POS_DTYPE)
-    ends_out = torch.where(valid, ends_out, sentinel).to(POS_DTYPE)
+    starts_out = torch.where(valid, starts_out, nrows).to(POS_DTYPE)
+    ends_out = torch.where(valid, ends_out, nrows).to(POS_DTYPE)
     return starts_out, ends_out, n_out
 
 
@@ -319,8 +308,7 @@ def rle_contain_idx(c_idx_pos, n_idx, rs, re, n_rle, nrows: int, cap_out: int):
     lengths = torch.where(ok, bin_e - bin_s + 1, torch.zeros_like(bin_s))
     flat, run_src, valid, n_out = range_arange_capped(bin_s.to(POS_DTYPE),
                                                       lengths, cap_out)
-    sentinel = torch.tensor(nrows, dtype=POS_DTYPE, device=flat.device)
-    pos_out = torch.where(valid, take_clamped(c_idx_pos, flat), sentinel)
+    pos_out = torch.where(valid, take_clamped(c_idx_pos, flat), nrows)
     run_out = torch.where(valid, run_src, torch.zeros_like(run_src))
     src_out = torch.where(valid, flat, torch.zeros_like(flat))
     return pos_out, run_out.to(POS_DTYPE), src_out.to(POS_DTYPE), n_out
@@ -391,9 +379,8 @@ def compact_rle(rs, re, n, nrows: int):
     lengths = torch.where(valid, re - rs + 1, torch.zeros_like(rs))
     ends_new = cumsum(lengths) - 1
     starts_new = ends_new - lengths + 1
-    sentinel = torch.tensor(nrows, dtype=POS_DTYPE, device=rs.device)
-    s_out = torch.where(valid, starts_new.to(POS_DTYPE), sentinel)
-    e_out = torch.where(valid, ends_new.to(POS_DTYPE), sentinel)
+    s_out = torch.where(valid, starts_new.to(POS_DTYPE), nrows)
+    e_out = torch.where(valid, ends_new.to(POS_DTYPE), nrows)
     total = lengths.sum(dtype=torch.int32)
     return s_out, e_out, n, total
 
@@ -410,8 +397,7 @@ def rle_to_index(values, rs, re, n, nrows: int, cap_out: int):
     lengths = torch.where(valid_slots(n, cap), re - rs + 1,
                           torch.zeros_like(rs))
     pos, src, valid, n_out = range_arange_capped(rs, lengths, cap_out)
-    pos = torch.where(valid, pos, torch.tensor(nrows, dtype=POS_DTYPE,
-                                               device=pos.device))
+    pos = torch.where(valid, pos, nrows)
     vals = None
     if values is not None:
         v = take_clamped(unpack_values(values), src)
@@ -424,7 +410,7 @@ def rle_to_plain(values, rs, re, n, nrows: int, fill=0):
     None). Dispatch-routed: the CUDA ``rle_decode`` kernel when the policy
     picks it, otherwise the O(n) scatter+cumsum sweep."""
     from repro_torch.core.encodings import (_run_id_per_row,
-                                            decode_rle_coverage, fill_scalar)
+                                            decode_rle_coverage)
     rs, re = unpack_values(rs), unpack_values(re)
     if values is None:
         return decode_rle_coverage(rs, re, n, nrows)
@@ -434,8 +420,7 @@ def rle_to_plain(values, rs, re, n, nrows: int, fill=0):
     covered = decode_rle_coverage(rs, re, n, nrows)
     run = torch.clamp(_run_id_per_row(rs, n, nrows), 0, rs.shape[0] - 1)
     values = unpack_values(values)
-    return torch.where(covered, values[run],
-                       fill_scalar(fill, values.dtype, values.device))
+    return torch.where(covered, values[run], fill_scalar(fill, values.dtype))
 
 
 def plain_to_rle(values, cap_out: int, nrows: int | None = None):
@@ -445,9 +430,7 @@ def plain_to_rle(values, cap_out: int, nrows: int | None = None):
     newrun = (i == 0) | (values != torch.roll(values, 1))
     (v_out, s_out), n_out = compact(newrun, (values, i), cap_out, (0, nrows))
     e_out = torch.cat([s_out[1:], _full(1, nrows, POS_DTYPE, s_out)]) - 1
-    e_out = torch.where(valid_slots(n_out, cap_out), e_out,
-                        torch.tensor(nrows, dtype=POS_DTYPE,
-                                     device=e_out.device))
+    e_out = torch.where(valid_slots(n_out, cap_out), e_out, nrows)
     return v_out, s_out, e_out, n_out
 
 
@@ -502,8 +485,7 @@ def plain_to_rle_index(values, min_run: int, cap_runs: int, cap_idx: int,
     short = (~long_run) & (lengths > 0)
     short_lengths = torch.where(short, lengths, torch.zeros_like(lengths))
     pos, src, validx, in_ = range_arange_capped(s, short_lengths, cap_idx)
-    pos = torch.where(validx, pos, torch.tensor(nrows, dtype=POS_DTYPE,
-                                                device=pos.device))
+    pos = torch.where(validx, pos, nrows)
     iv = take_clamped(v, src)
     iv = torch.where(validx, iv, torch.zeros_like(iv))
     return rv, rs, re, rn, iv, pos, in_

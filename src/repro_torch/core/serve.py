@@ -10,7 +10,9 @@ dataset, built from four pieces that reuse the machinery of §4/§10/§12:
 
   * ``DeviceResidencyLRU`` — hot packed partitions stay on the device
     across queries under a byte budget (``serve_budget_bytes``, defaulting
-    to the table's declared ingest budget). It stores what
+    to the table's declared ingest budget, less the CUDA graphs' input
+    slot on a card; admission and the ring's depth clamp use the same
+    figure). It stores what
     ``partition._put_columns`` returns: the device tree plus the CUDA
     event recorded after its copies, which ran on the server's one copy
     stream. A hit issues no copy; every use of a resident tree, hit or
@@ -38,7 +40,11 @@ dataset, built from four pieces that reuse the machinery of §4/§10/§12:
     ``StreamStats`` attribution splits each query's partitions into LRU
     hits, co-batched shared hits, and the transfers it itself triggered.
     Row-terminal ranked queries run solo (their speculative prune order is
-    per-query, §10) but still ride the LRU and plan cache.
+    per-query, §10) but still ride the LRU and plan cache. On a CUDA
+    device the pass replays each (query, partition) program as a CUDA
+    graph (``core/graphs.py``): a key's first sighting runs eagerly, its
+    second captures, later ones replay; the graphs' static input slot
+    comes out of the device budget the LRU and the ring share.
 
   * an admission/queue loop — ``submit()`` enqueues and returns a
     ``Ticket``; a single drain thread (inside ``torch.cuda.device`` of the
@@ -51,9 +57,10 @@ dataset, built from four pieces that reuse the machinery of §4/§10/§12:
 
 Serving observability: ``QueryServer.stats()`` reports QPS over the
 serving window, p50/p99/mean latency over the last ``LATENCY_HISTORY``
-completions, plan-cache and residency hit rates, and the scan-sharing
-split. A ticket's ``stats`` add ``queue_ms`` (submission to admission)
-and ``prep_ms`` (its preparation on the drain thread), the times of its
+completions, plan-cache and residency hit rates, the scan-sharing split,
+and the programs replayed, captured and run eagerly (``graphs``). A
+ticket's ``stats`` add ``queue_ms`` (submission to admission) and
+``prep_ms`` (its preparation on the drain thread), the times of its
 ``serve.queue`` and ``serve.prep`` spans. Knobs:
 ``DispatchPolicy.serve_budget_bytes`` /
 ``plan_cache_size`` / ``serve_max_batch`` (env ``REPRO_SERVE_BUDGET_BYTES``
@@ -85,6 +92,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults, groupby
+from repro_torch.core import graphs as graphs_mod
 from repro_torch.core import order as order_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import stream
@@ -203,6 +211,9 @@ class PlanEntry:
     trace_count: int = 0  # programs built for this entry (one per miss)
     hits: int = 0
     warm: bool = False  # served at least one completed batch
+    # (layout, key-set capacities) -> the key's CUDA graph or sighting
+    # state (core/graphs.py); a capture is not a build
+    graphs: dict = dataclasses.field(default_factory=dict)
 
 
 class PlanCache:
@@ -243,6 +254,12 @@ class PlanCache:
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def drop_graphs(self) -> None:
+        """Release every entry's CUDA graphs (their pool memory)."""
+        with self._lock:
+            for entry in self._entries.values():
+                entry.graphs.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -352,13 +369,20 @@ class QueryServer:
         self.table = table
         self.device = table.device
         self.budget_bytes = budget_bytes
+        # the shared scan's CUDA graphs: their static input slot is device
+        # memory the server holds, so it comes out of the budget that the
+        # residency LRU, the prefetch ring and admission share (none off
+        # CUDA)
+        self.graphs = graphs_mod.ProgramGraphs(table, self.device)
+        part_budget = (None if budget_bytes is None
+                       else max(budget_bytes - self.graphs.slot_nbytes, 0))
         # the server's one copy stream: every LRU miss copies on it, from
         # whichever thread fetches (the prefetch ring's worker, mostly)
         copy_stream = None
         if self.device.type == "cuda":
             with _on_device(self.device):
                 copy_stream = torch.cuda.Stream(self.device)
-        self.lru = DeviceResidencyLRU(budget_bytes, self.device, copy_stream)
+        self.lru = DeviceResidencyLRU(part_budget, self.device, copy_stream)
         self.plans = PlanCache(plan_cache_size if plan_cache_size is not None
                                else pol.plan_cache_size)
         self.max_batch = max(int(max_batch if max_batch is not None
@@ -536,9 +560,9 @@ class QueryServer:
                         nxt = self._queue[0]
                         fresh = nxt.part_ids - union
                         fresh_bytes = self._part_nbytes(fresh)
-                        if (self.budget_bytes is not None
+                        if (self.lru.budget_bytes is not None
                                 and union_bytes + fresh_bytes
-                                > self.budget_bytes):
+                                > self.lru.budget_bytes):
                             break
                         union |= fresh
                         union_bytes += fresh_bytes
@@ -700,7 +724,7 @@ class QueryServer:
         scan = sorted(union.items())
         max_nbytes = max((p.nbytes() for _, p in scan), default=0)
         depth = stream.clamp_depth(dispatch.policy().prefetch_depth,
-                                   max_nbytes, self.budget_bytes)
+                                   max_nbytes, self.lru.budget_bytes)
         pass_stats = stream.StreamStats(prefetch_depth=depth)
         for it in items:
             it.stats.prefetch_depth = depth
@@ -732,12 +756,14 @@ class QueryServer:
                     # each span carries that query's qid plus how the
                     # bytes were sourced — so per-query trace sums
                     # reconcile with stats(). It times the host's launch
-                    # of the program (and any wait for the device in it).
+                    # of the program, or of its CUDA graph (and any wait
+                    # for the device in it); ``graph`` says which.
                     with stream.stage(st, "compute_ms", "serve.program",
-                                      "main", {"part": pid, "src": src}):
+                                      "main", {"part": pid, "src": src}) as sp:
                         faults.maybe_inject("program", pid)
-                        partials[i] = items[i].entry.program(
-                            cols, items[i].key_sets, part.rows)
+                        partials[i], sp.attrs["graph"] = self.graphs.run(
+                            items[i].entry, pid, cols, items[i].key_sets,
+                            part.rows)
                 except DeviceOOMError:
                     raise  # allocator pressure is pass-level, not per-query
                 except Exception as exc:  # noqa: BLE001 - isolate
@@ -956,6 +982,7 @@ class QueryServer:
                             if res_total else 0.0,
             },
             "scans": scans,
+            "graphs": self.graphs.stats(),
         })
         return out
 
@@ -993,6 +1020,8 @@ class QueryServer:
                          else QueryCancelled(
                              f"query {t.qid} cancelled: server closed"))
         self.lru.clear()
+        self.plans.drop_graphs()
+        self.graphs.release()
 
     def recover(self) -> "QueryServer":
         """Clear a ``_fatal`` invariant violation and resume serving.

@@ -21,9 +21,15 @@ telemetry records as a ``kernel`` instant while it records. With
 ``capture(True)``, each wrapper also keeps the inputs of its largest
 launch (``LARGEST``), so a caller can replay the main path's real shapes
 against the plain versions.
+
+A CUDA graph's capture launches nothing, and its replays run no wrapper:
+inside ``tape()`` a thread's launches (and its routing decisions,
+``kernels/dispatch.py``) are held back instead of booked, and ``play``
+books them again on each replay of the graph.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,7 +38,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("bucketize.cu", "rle_decode.cu", "segment_reduce.cu", "unpack.cu",
@@ -52,6 +58,7 @@ BUILD_INFO: Dict[str, object] = {}
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _CAPTURE = False
+_TAPE = threading.local()  # .calls: what this thread's capture holds back
 
 
 def reset_launches() -> None:
@@ -73,18 +80,56 @@ def capture(on: bool) -> None:
         LARGEST.clear()
 
 
-def count_launch(name: str, work: int, cls: str, nbytes: int,
-                 **inputs) -> None:
-    """Book one launch of kernel ``name`` of shape class ``cls`` that must
-    move ``nbytes`` (called right after the launch)."""
+Taped = List[Tuple[Callable, tuple]]
+
+
+@contextlib.contextmanager
+def tape():
+    """Hold back what ``record`` is given on this thread inside (a CUDA
+    graph's capture) and yield it: ``play`` makes it on each replay."""
+    calls: Taped = []
+    _TAPE.calls = calls
+    try:
+        yield calls
+    finally:
+        _TAPE.calls = None
+
+
+def taping() -> bool:
+    return getattr(_TAPE, "calls", None) is not None
+
+
+def record(fn: Callable, *args) -> None:
+    """``fn(*args)`` now, or on each replay while this thread tapes."""
+    calls = getattr(_TAPE, "calls", None)
+    if calls is None:
+        fn(*args)
+    else:
+        calls.append((fn, args))
+
+
+def play(calls: Taped) -> None:
+    for fn, args in calls:
+        fn(*args)
+
+
+def _book(name: str, cls: str, nbytes: int) -> None:
     # lazy: core.telemetry's package imports the kernels
     from repro_torch.core import telemetry
     LAUNCHES[name] += 1
     tally = SHAPES[name]
     tally[cls] = tally.get(cls, 0) + 1
-    if _CAPTURE and work >= LARGEST.get(name, {}).get("work", -1):
-        LARGEST[name] = dict(inputs, work=work)
     telemetry.record_kernel(name, nbytes)
+
+
+def count_launch(name: str, work: int, cls: str, nbytes: int,
+                 **inputs) -> None:
+    """Book one launch of kernel ``name`` of shape class ``cls`` that must
+    move ``nbytes`` (called right after the launch)."""
+    if (_CAPTURE and not taping()
+            and work >= LARGEST.get(name, {}).get("work", -1)):
+        LARGEST[name] = dict(inputs, work=work)
+    record(_book, name, cls, nbytes)
 
 
 def nvcc_path() -> str:

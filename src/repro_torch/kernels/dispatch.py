@@ -61,6 +61,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels.bucketize import (
     MAX_SMEM_BOUNDARIES,
@@ -238,10 +239,14 @@ def overrides(**kw):
 
 def _route(primitive: str, path: str, reason) -> None:
     """Record one routing decision while telemetry records. The router
-    runs on every call, so ``reason()`` builds the text only then."""
+    runs on every call, so ``reason()`` builds the text only then. Inside
+    a CUDA graph's capture (``_build.tape``) the record waits for each
+    replay of the graph."""
     # lazy: core.telemetry imports this module back
     from repro_torch.core import telemetry
-    if telemetry.enabled():
+    if _build.taping():  # a capture: each replay records it
+        _build.record(telemetry.record_route, primitive, path, reason())
+    elif telemetry.enabled():
         telemetry.record_route(primitive, path, reason())
 
 

@@ -53,7 +53,7 @@ def ref_rle_decode(values: torch.Tensor, starts: torch.Tensor,
     run = torch.clamp(run, max=cap - 1)
     n = torch.as_tensor(n, dtype=torch.int32, device=dev)
     covered = (rows >= starts[run]) & (rows <= ends[run]) & (run < n)
-    return torch.where(covered, values[run], fill_t.to(dev))
+    return torch.where(covered, values[run], fill_t.item())
 
 
 SPARE_SLOTS = 1024  # spare slots that dropped updates spread over

@@ -749,9 +749,11 @@ def test_gpu_server_threads_bit_identical_to_solo(cuda_device, depth):
 
 @pytest.mark.gpu
 def test_gpu_server_evicting_budget_stays_exact(cuda_device):
-    """A budget of one partition: every fetch evicts the tree a program
-    may still be reading (the ring runs ahead), and the answers stay
-    bit-identical to solo runs."""
+    """A budget of one partition (plus the CUDA graphs' input slot, which
+    the budget includes): every fetch evicts the tree a program may still
+    be reading (the ring runs ahead), and the answers stay bit-identical
+    to solo runs."""
+    from repro_torch.core.graphs import ProgramGraphs
     from repro_torch.core.serve import QueryServer
     from repro_torch.kernels import dispatch
     pt, ot, keys = _served_table(cuda_device)
@@ -760,15 +762,18 @@ def test_gpu_server_evicting_budget_stays_exact(cuda_device):
         return chip_smoke.build_served(name, pt, ot, keys)
 
     mix = chip_smoke.SERVE_MIX
+    part = pt.max_partition_nbytes()
+    slot = ProgramGraphs(pt, cuda_device).slot_nbytes
     with dispatch.overrides(prefetch_depth=2):
         solo = {n: chip_smoke.host_result(make(n).run()) for n in mix}
         with pytest.warns(UserWarning):  # the ring's depth clamp
-            with QueryServer(pt, budget_bytes=pt.max_partition_nbytes(),
+            with QueryServer(pt, budget_bytes=part + slot,
                              max_batch=8) as srv:
+                assert srv.lru.budget_bytes == part
                 done = _serve_threads(srv, make, [list(mix), list(mix)])
                 evictions = srv.lru.evictions
                 resident = srv.lru.resident_bytes
-    assert evictions > 0 and resident <= pt.max_partition_nbytes()
+    assert evictions > 0 and resident <= part
     for n, got in done:
         assert chip_smoke._bits(got) == chip_smoke._bits(solo[n]), n
 
@@ -776,11 +781,12 @@ def test_gpu_server_evicting_budget_stays_exact(cuda_device):
 @pytest.mark.gpu
 def test_gpu_shared_scan_folds_after_each_d2h_event(cuda_device,
                                                     monkeypatch):
-    """8 subscribers over 8 partitions in one shared pass, each program
-    held back on the device (a sleep kernel before it), so every partial's
-    device-to-host copy lands late: the fold must still read each
-    partial's final values (the pass waits on the event after the last
-    copy), giving the solo runs' answers bit for bit."""
+    """8 subscribers over 8 partitions in one shared pass, three passes
+    (so the programs run eagerly, are captured and are replayed as CUDA
+    graphs), each program held back on the device (a sleep kernel before
+    it), so every partial's device-to-host copy lands late: the fold must
+    still read each partial's final values (the pass waits on the event
+    after the last copy), giving the solo runs' answers bit for bit."""
     from repro_torch.core import serve
     from repro_torch.core.partition import PartitionedQuery
     from repro_torch.core.plan import col
@@ -811,14 +817,271 @@ def test_gpu_shared_scan_folds_after_each_d2h_event(cuda_device,
         with dispatch.overrides(prefetch_depth=depth):
             srv = serve.QueryServer(pt, start=False, max_batch=8)
             try:
-                tickets = {c: srv.submit(make(c)) for c in cuts}
-                assert srv.step() == 8
-                assert srv.stats()["scans"]["passes"] == 1
-                for c, t in tickets.items():
-                    got = chip_smoke.host_result(srv.result(t, timeout=0))
-                    assert chip_smoke._bits(got) == chip_smoke._bits(solo[c])
+                # eager, then captures, then replays: a replayed program's
+                # partial leaves the graph's buffers just as late
+                for rnd in range(3):
+                    tickets = {c: srv.submit(make(c)) for c in cuts}
+                    assert srv.step() == 8
+                    assert srv.stats()["scans"]["passes"] == rnd + 1
+                    for c, t in tickets.items():
+                        got = chip_smoke.host_result(srv.result(t, timeout=0))
+                        assert (chip_smoke._bits(got)
+                                == chip_smoke._bits(solo[c])), (rnd, c)
+                g = srv.stats()["graphs"]
+                assert g["fallbacks"] == 0, srv.graphs.last_error
+                assert g["replays"] >= g["captures"] > 0
             finally:
                 srv.close()
+
+
+# ---------------------------------------------------------------------------
+# The served program as a CUDA graph (core/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_SHAPES = ("Q1", "Q1s", "Q6", "Q19")
+
+
+def _graph_tables(dev, scale=0.01, part_rows=1 << 13):
+    """The benchmark's served cell at a small size on ``dev``: LINEITEM
+    as packed pinned partitions (eight, the last one shorter: two
+    layouts), PART resident; and the cell's four query shapes."""
+    import json
+    from pathlib import Path
+    from perfbench import generate, harness
+    from repro_torch.core.partition import PartitionedTable
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "perfbench/configs/tpch_sf10_served_third.json")
+                     .read_text())
+    data = generate.make(cfg, 3_000_000_029, device=dev, scale=scale)
+    comp = compress.CompressionConfig(**cfg["deployment"]["compression"])
+    pt = PartitionedTable.from_arrays(data.lineitem, cfg=comp,
+                                      partition_rows=part_rows, pack=True,
+                                      device=dev)
+    tables = {"lineitem": pt,
+              "part": Table.from_arrays(data.part, cfg=comp, device=dev)}
+    return tables, {n: harness.plugin("shapes", n) for n in GRAPH_SHAPES}
+
+
+def _leaf_bits(tree):
+    """Each leaf's bytes, once every copy in flight has landed (a graph's
+    partial comes back on its way to pinned host memory)."""
+    from repro_torch.core.encodings import tensor_leaves
+    torch.cuda.synchronize()
+    return [t.cpu().numpy().tobytes() for t in tensor_leaves(tree)]
+
+
+@pytest.mark.gpu
+def test_gpu_graph_replays_bit_identical_to_eager(cuda_device):
+    """Every partition's program of the four shapes, three rounds, each
+    with fresh transfers and a fresh join side: the runner's partial
+    (eager, capture or replay) is bit-identical to the eager program's on
+    the same inputs, over partitions of two layouts."""
+    from repro_torch.core import graphs
+    from repro_torch.core.partition import (PartitionedQuery, _put_columns,
+                                            base_masked_program,
+                                            ready_on_compute)
+    from repro_torch.core.serve import PlanEntry
+    tables, shapes = _graph_tables(cuda_device)
+    pt = tables["lineitem"]
+    runner = graphs.ProgramGraphs(pt, cuda_device)
+    assert len(set(runner._layouts)) >= 2
+    modes = {n: [] for n in GRAPH_SHAPES}
+    for name in GRAPH_SHAPES:
+        entry = PlanEntry(program=base_masked_program(
+            shapes[name].build(tables, PartitionedQuery).build(partial=True)))
+        for rnd in range(3):
+            keys = tuple(shapes[name].build(tables, PartitionedQuery)
+                         ._prepare_inputs())
+            for pid, part in enumerate(pt.partitions):
+                cols = ready_on_compute(
+                    _put_columns(part.table.columns, cuda_device), cuda_device)
+                want = _leaf_bits(entry.program(cols, keys, part.rows))
+                got, mode = runner.run(entry, pid, cols, keys, part.rows)
+                modes[name].append(mode)
+                assert _leaf_bits(got) == want, (name, rnd, pid, mode)
+    assert runner.fallbacks == 0, runner.last_error
+    for name, seen in modes.items():
+        assert seen.count("capture") == len(set(runner._layouts)), name
+        assert seen.count("replay") > len(seen) // 2, name
+
+
+def _booked_rounds(tables, shapes, graphs_on, rounds=3):
+    """Per round of the four shapes through one server (no drain thread):
+    the kernels' launches and shape classes, the ``kernel`` instants'
+    (kernel, bytes) and the routing counters booked; and the server's
+    graph counters. ``graphs_on=False`` runs every program eagerly."""
+    from repro_torch.core import serve, telemetry
+    from repro_torch.core.partition import PartitionedQuery
+    from repro_torch.kernels import dispatch
+    booked = []
+    try:
+        with dispatch.overrides(enable_trace=True):
+            with serve.QueryServer(tables["lineitem"], start=False,
+                                   max_batch=8) as srv:
+                srv.graphs.enabled = graphs_on
+                for _ in range(rounds):
+                    _build.reset_launches()
+                    telemetry.reset()
+                    tickets = [srv.submit(shapes[n].build(tables,
+                                                          PartitionedQuery))
+                               for n in GRAPH_SHAPES]
+                    while srv.step():
+                        pass
+                    for t in tickets:
+                        srv.result(t, timeout=0)
+                    reg = telemetry.registry()
+                    booked.append((
+                        dict(_build.LAUNCHES),
+                        {k: dict(v) for k, v in _build.SHAPES.items()},
+                        sorted((e["attrs"]["kernel"], e["attrs"]["nbytes"])
+                               for e in reg.events(name="kernel")),
+                        {k: v for k, v in reg.counters().items()
+                         if k.startswith("route.")}))
+                g = srv.stats()["graphs"]
+    finally:
+        telemetry.reset()
+    return booked, g
+
+
+@pytest.mark.gpu
+def test_gpu_replays_book_what_eager_runs_book(cuda_device):
+    """A capture launches nothing and a replay runs no wrapper, so the
+    runner books each graph's launches, shape classes, ``kernel``
+    instants (with their bytes) and routing records on every replay:
+    three rounds of the four shapes through a server that captures and
+    replays book, round by round, exactly what a server that runs every
+    program eagerly books."""
+    tables, shapes = _graph_tables(cuda_device)
+    eager, g_eager = _booked_rounds(tables, shapes, graphs_on=False)
+    graphed, g = _booked_rounds(tables, shapes, graphs_on=True)
+    assert g_eager["captures"] == g_eager["replays"] == 0
+    assert g["fallbacks"] == 0 and g["replays"] > g["captures"] > 0
+    assert sum(eager[-1][0].values()) > 0
+    for rnd, (want, got) in enumerate(zip(eager, graphed)):
+        assert got == want, rnd
+
+
+@pytest.mark.gpu
+def test_gpu_served_graphs_bit_identical_to_solo(cuda_device):
+    """The four shapes, three times each from four threads, through a
+    server whose budget (two partitions, less the graphs' slot) evicts on
+    every pass: every answer is bit-identical to the query's solo run,
+    and most programs are replays."""
+    import warnings
+    from repro_torch.core.partition import PartitionedQuery
+    from repro_torch.core.serve import QueryServer
+    tables, shapes = _graph_tables(cuda_device)
+    pt = tables["lineitem"]
+
+    def make(name):
+        return shapes[name].build(tables, PartitionedQuery)
+
+    solo = {n: chip_smoke.host_result(make(n).run()) for n in GRAPH_SHAPES}
+    plan = [[GRAPH_SHAPES[(t + i) % 4] for i in range(12)] for t in range(4)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the ring's clamp
+        with QueryServer(pt, budget_bytes=2 * pt.max_partition_nbytes(),
+                         max_batch=8) as srv:
+            done = _serve_threads(srv, make, plan)
+            stats = srv.stats()
+    g = stats["graphs"]
+    assert len(done) == 48 and stats["errors"] == 0
+    assert stats["residency"]["evictions"] > 0
+    assert g["fallbacks"] == 0 and g["captures"] > 0, srv.graphs.last_error
+    assert g["replays"] > g["captures"] + g["eager"]
+    for n, got in done:
+        assert chip_smoke._bits(got) == chip_smoke._bits(solo[n]), n
+
+
+@pytest.mark.gpu
+def test_gpu_capture_that_syncs_falls_back_to_eager(cuda_device,
+                                                    monkeypatch):
+    """A program that reads a device value on the host cannot be
+    captured: each key's capture fails, is counted, leaves the key eager,
+    and every answer is still the solo run's."""
+    from repro_torch.core import serve
+    from repro_torch.core.encodings import tensor_leaves
+    from repro_torch.core.partition import PartitionedQuery
+    tables, shapes = _graph_tables(cuda_device)
+    pt = tables["lineitem"]
+    real = serve.base_masked_program
+
+    def syncing(inner):
+        program = real(inner)
+
+        def run(cols, keys, rows):
+            out = program(cols, keys, rows)
+            tensor_leaves(out)[0].sum().item()  # a sync
+            return out
+
+        return run
+
+    solo = {n: chip_smoke.host_result(
+        shapes[n].build(tables, PartitionedQuery).run()) for n in GRAPH_SHAPES}
+    monkeypatch.setattr(serve, "base_masked_program", syncing)
+    with serve.QueryServer(pt, start=False) as srv:
+        for _ in range(3):
+            tickets = [(n, srv.submit(shapes[n].build(tables,
+                                                      PartitionedQuery)))
+                       for n in GRAPH_SHAPES]
+            while srv.step():
+                pass
+            for n, t in tickets:
+                got = chip_smoke.host_result(srv.result(t, timeout=0))
+                assert chip_smoke._bits(got) == chip_smoke._bits(solo[n]), n
+        g = srv.stats()["graphs"]
+    assert g["fallbacks"] >= len(GRAPH_SHAPES)
+    assert g["captures"] == g["replays"] == 0
+
+
+@pytest.mark.gpu
+def test_gpu_cancel_and_faults_act_between_replays(cuda_device):
+    """Once every key replays, a fault injected at a partition's
+    ``program`` site fails only its own query, and a ticket cancelled
+    after a replay stops at the next partition boundary; the others'
+    answers stay the solo runs'."""
+    from repro_torch.core import faults, serve
+    from repro_torch.core.faults import QueryCancelled
+    from repro_torch.core.partition import PartitionedQuery
+    tables, shapes = _graph_tables(cuda_device)
+    pt = tables["lineitem"]
+
+    def make(name):
+        return shapes[name].build(tables, PartitionedQuery)
+
+    solo = {n: chip_smoke._bits(chip_smoke.host_result(make(n).run()))
+            for n in ("Q1", "Q6")}
+    with serve.QueryServer(pt, start=False, max_batch=8) as srv:
+        for _ in range(2):  # eager, then captures
+            warm = [srv.submit(make(n)) for n in ("Q1", "Q6")]
+            while srv.step():
+                pass
+            for t in warm:
+                srv.result(t, timeout=0)
+        replays0 = srv.stats()["graphs"]["replays"]
+        plan = faults.FaultPlan().transient(part=2, site="program")
+        t1, t6 = srv.submit(make("Q1")), srv.submit(make("Q6"))
+        with plan:
+            assert srv.step() == 2  # one shared pass
+        assert isinstance(t1.error, faults.TransientTransferError)
+        assert chip_smoke._bits(chip_smoke.host_result(t6.result)) == solo["Q6"]
+        assert srv.stats()["graphs"]["replays"] > replays0
+        real = srv.graphs.run
+        victim = srv.submit(make("Q1"))
+        other = srv.submit(make("Q6"))
+
+        def run(entry, pid, *args):
+            out = real(entry, pid, *args)
+            if pid == 1 and out[1] == "replay":
+                srv.cancel(victim)
+            return out
+
+        srv.graphs.run = run
+        assert srv.step() == 2
+        assert isinstance(victim.error, QueryCancelled)
+        assert victim.stats is None
+        assert chip_smoke._bits(chip_smoke.host_result(other.result)) == \
+            solo["Q6"]
 
 
 SMOKE_MODELS = list(model_configs.ARCHS)
